@@ -1,0 +1,436 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (vpin_tpu_torch) on one GPU and check it.
+
+    python3 chip_smoke.py
+
+Phases:
+  1. the card's name and power limit (nvidia-smi);
+  2. build the CUDA kernels from vpin_tpu_torch/csrc, all at once;
+  3. hold each kernel bit for bit against its plain PyTorch version on the
+     card, at the main path's shapes plus edge and special cases, and time
+     both (CUDA events, after warm-up);
+  4. the main path at full width: four encrypted conv3/32x32 requests
+     through run_conv_workload, each with its rLC check, 18/16 trace counts,
+     points on E2, 8 output pixels per half and the whole witness trace held
+     exactly against the host's curve arithmetic (curve/host_ec.py);
+  5. each kernel's launch count on the main path.
+The line before the last is a JSON object with every kernel's numbers; the
+last is {"ok": true, "device": {...}}.  Any failure raises: the script then
+exits non-zero without that line.  Without a GPU it exits 1 at once.
+"""
+
+from __future__ import annotations
+
+import json
+import random
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+# H100 SXM: 32-bit integer multiply and multiply-add, 64 results per clock
+# per SM (CUDA C++ Programming Guide, throughput of native arithmetic
+# instructions, compute capability 9.0); memory 3.35 TB/s (NVIDIA data sheet).
+MUL32_PER_CLOCK_PER_SM = 64
+HBM_BYTES_PER_S = 3.35e12
+# one CIOS Montgomery product over 8 x 32-bit limbs: 64 limb products for
+# a*b and 64 for m*N, each a lo and a hi multiply, plus 8 for m
+MUL32_PER_MONT = 2 * 64 + 2 * 64 + 8
+MONT_PER_E2_ADD = 17
+FILTER = 3
+SIZE = 32
+REQUESTS = 4
+
+
+class SmokeError(Exception):
+    pass
+
+
+def require(ok, what: str) -> None:
+    if not ok:
+        raise SmokeError(what)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def smi(query: str) -> str:
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+# ----------------------------------------------------------------------
+# timing
+# ----------------------------------------------------------------------
+
+def kernel_ms(torch, fn, launches: int = 20, repeats: int = 5) -> float:
+    """Median device time of one call of ``fn``: ``launches`` calls are
+    queued behind a sleep kernel, so the host's enqueue time stays out of
+    the events' window."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(50_000_000)
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return statistics.median(times)
+
+
+def wall_ms(torch, fn, repeats: int = 1) -> float:
+    """Median host time of ``fn`` ending in a device synchronize (the plain
+    versions: thousands of small launches and some host syncs)."""
+    times = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+def bound_ms(mul32: float, nbytes: float, mul32_rate: float):
+    t_ops = mul32 / mul32_rate * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def max_abs_err(torch, got, want) -> int:
+    return max(int((g.long() - w.long()).abs().max().item()) if g.numel() else 0
+               for g, w in zip(got, want))
+
+
+# ----------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# ----------------------------------------------------------------------
+
+def field_operands(torch, F, n: int, seed: int, dev):
+    """n canonical elements: edge values first, then uniform limbs below N."""
+    from vpin_tpu_torch.field.limbs import ints_to_limbs, to_tensor
+    N = F.modulus
+    top = N >> 224
+    edges = [0, 1, 2, N - 1, N - 2, (N - 1) // 2, 2**128,
+             ((top - 1) << 224) | (2**224 - 1), N - 2**32]
+    edges += [(1 << k) - 1 for k in range(16, F.num_bits, 16)]
+    rs = np.random.RandomState(seed)
+    limbs = rs.randint(0, 2**32, size=(n, 8), dtype=np.uint64)
+    limbs[:, 7] %= top                        # value < top * 2^224 <= N
+    limbs = limbs.astype(np.uint32)
+    limbs[:len(edges)] = ints_to_limbs(edges)
+    return to_tensor(limbs, dev)
+
+
+def check_mont_mul(torch, dev, rate):
+    from vpin_tpu_torch.field import FP, FQ
+    from vpin_tpu_torch.field.cuda_mont import mont_mul, mont_mul_plain
+    from vpin_tpu_torch.field.limbs import limbs_to_ints, to_numpy
+    n = 1 << 16
+    rows = {}
+    for F, seed in ((FQ, 1), (FP, 2)):
+        a = field_operands(torch, F, n, seed, dev)
+        b = field_operands(torch, F, n, seed + 10, dev)
+        b = torch.flip(b, [0]).contiguous()    # edges meet random and edges
+        got = mont_mul(a, b, F)
+        want = mont_mul_plain(a, b, F)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want), f"mont_mul {F.name}: kernel != plain")
+        # and exact on the host for the edges
+        Rinv = pow(1 << 256, -1, F.modulus)
+        xs = limbs_to_ints(to_numpy(a[:64]))
+        ys = limbs_to_ints(to_numpy(b[:64]))
+        gs = limbs_to_ints(to_numpy(got[:64]))
+        require(all(int(g) == int(x) * int(y) * Rinv % F.modulus
+                    for g, x, y in zip(gs, xs, ys)),
+                f"mont_mul {F.name}: kernel != exact host product")
+        ms = kernel_ms(torch, lambda: mont_mul(a, b, F), launches=200)
+        plain = wall_ms(torch, lambda: mont_mul_plain(a, b, F), repeats=5)
+        bnd, by = bound_ms(MUL32_PER_MONT * n, 96 * n, rate)
+        log(f"K1 mont_mul {F.name} n={n}: bit-equal to plain; "
+            f"kernel {ms:.4f} ms, plain {plain:.3f} ms, bound {bnd:.4f} ms "
+            f"({by})")
+        rows[F.name] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                            max_abs_err=max_abs_err(torch, [got], [want]))
+    return rows["Fl"]
+
+
+def random_points(torch, dev, n: int, seed: int):
+    """n projective points of E2 on the device: the seven special sums of
+    tests/test_curve_e2.py first, then random multiples of G, each scaled
+    by a random Z (so no two share a representation)."""
+    from vpin_tpu_torch.curve.host_ec import E2_G_HOST, E2_ORDER, host_infinity
+    from vpin_tpu_torch.curve.weierstrass import E2, PointW
+    G, INF = E2_G_HOST, host_infinity()
+    rng = random.Random(seed)
+    P_sp = [G, G, INF, INF, G, 2 * G, 3 * G]
+    Q_sp = [G, INF, G, INF, -G, 2 * G, -3 * G]
+    pool = [rng.randrange(1, E2_ORDER) * G for _ in range(256)]
+    idx = np.random.RandomState(seed).randint(0, 256, size=n - 7)
+    P = E2.from_affine_host(P_sp + [pool[i] for i in idx], dev)
+    Q = E2.from_affine_host(Q_sp + [pool[i] for i in idx[::-1]], dev)
+    F = E2.F
+
+    def scale(R, s):
+        Z = field_operands(torch, F, n, s, dev)
+        Z[0] = F.ones((), dev)                 # keep one affine pair
+        Z[Z.eq(0).all(-1)] = F.ones((), dev)
+        return PointW(F.mul(R.x, Z), F.mul(R.y, Z), F.mul(R.z, Z))
+
+    return scale(P, seed + 1), scale(Q, seed + 2)
+
+
+def check_e2_add(torch, dev, rate):
+    from vpin_tpu_torch.curve import cuda_ec
+    from vpin_tpu_torch.curve.weierstrass import E2, take
+    n = 1 << 16
+    P, Q = random_points(torch, dev, n, 3)
+    got = cuda_ec.e2_add(E2, tuple(P), tuple(Q))
+    want = cuda_ec.e2_add_plain(E2, tuple(P), tuple(Q))
+    torch.cuda.synchronize()
+    require(all(torch.equal(g, w) for g, w in zip(got, want)),
+            "e2_add: kernel != plain")
+    # and exact on the host for the special cases and a few more
+    k = 32
+    hp = E2.to_affine_host(take(P, slice(0, k)))
+    hq = E2.to_affine_host(take(Q, slice(0, k)))
+    from vpin_tpu_torch.curve.weierstrass import PointW
+    hr = E2.to_affine_host(PointW(*(c[:k] for c in got)))
+    require(all(hr[i] == hp[i] + hq[i] for i in range(k)),
+            "e2_add: kernel != host_ec")
+    ms = kernel_ms(torch, lambda: cuda_ec.e2_add(E2, tuple(P), tuple(Q)),
+                   launches=50)
+    plain = wall_ms(torch, lambda: cuda_ec.e2_add_plain(E2, tuple(P), tuple(Q)),
+                    repeats=3)
+    bnd, by = bound_ms(MONT_PER_E2_ADD * MUL32_PER_MONT * n, 288 * n, rate)
+    log(f"K2 e2_add n={n}: bit-equal to plain and host_ec; kernel {ms:.4f} ms, "
+        f"plain {plain:.3f} ms, bound {bnd:.4f} ms ({by})")
+    return dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                max_abs_err=max_abs_err(torch, got, want)), P
+
+
+def ladder_adds(rows: np.ndarray, n: int, inner: int, nrows: int,
+                n_bits: int) -> int:
+    """Complete additions the ladder does for these bits: one per set bit
+    and one doubling per bit but the last."""
+    per_row = rows[:, :n_bits].sum(axis=1).astype(np.int64)
+    pick = (np.arange(n) // inner) % nrows
+    return int(per_row[pick].sum()) + n * max(n_bits - 1, 0)
+
+
+def check_ladder(torch, dev, rate, P, n, n_bits, inner, nrows, label,
+                 plain_repeats=1):
+    from vpin_tpu_torch.curve import cuda_ec
+    from vpin_tpu_torch.curve.host_ec import host_infinity
+    from vpin_tpu_torch.curve.weierstrass import E2, PointW, pack_bits
+    from vpin_tpu_torch.field.limbs import to_tensor
+    rs = np.random.RandomState(n_bits + nrows)
+    rows = rs.randint(0, 2, size=(nrows, n_bits)).astype(np.uint8)
+    if nrows >= 3:
+        rows[0] = 0                            # ladder of the zero scalar
+        rows[1] = 1                            # all bits set
+        rows[2] = 0
+        rows[2, 0] = 1                         # the scalar 1
+    words = to_tensor(pack_bits(rows), dev)
+    base = tuple(c[:n].clone() for c in P)
+    base[0][7] = 0                             # a ladder on the identity
+    base[1][7] = E2.F.ones((), dev)
+    base[2][7] = 0
+    got = cuda_ec.e2_scalar_mul(E2, base, words, n_bits, inner, nrows)
+    t = time.perf_counter()
+    want = cuda_ec.e2_scalar_mul_plain(E2, base, words, n_bits, inner, nrows)
+    torch.cuda.synchronize()
+    plain = (time.perf_counter() - t) * 1e3
+    require(all(torch.equal(g, w) for g, w in zip(got, want)),
+            f"e2_scalar_mul {label}: kernel != plain")
+    k = 16
+    hb = E2.to_affine_host(PointW(*(c[:k] for c in base)))
+    hr = E2.to_affine_host(PointW(*(c[:k] for c in got)))
+    for i in range(k):
+        r = rows[(i // inner) % nrows]
+        s = int("".join(str(int(v)) for v in r[::-1]), 2) if n_bits else 0
+        want_i = s * hb[i] if s else host_infinity()
+        require(hr[i] == want_i, f"e2_scalar_mul {label}: element {i} != host_ec")
+    if plain_repeats > 1:
+        plain = wall_ms(torch, lambda: cuda_ec.e2_scalar_mul_plain(
+            E2, base, words, n_bits, inner, nrows), repeats=plain_repeats)
+    ms = kernel_ms(torch, lambda: cuda_ec.e2_scalar_mul(
+        E2, base, words, n_bits, inner, nrows), launches=3, repeats=3)
+    adds = ladder_adds(rows, n, inner, nrows, n_bits)
+    bnd, by = bound_ms(MONT_PER_E2_ADD * MUL32_PER_MONT * adds,
+                       192 * n + words.numel() * 4, rate)
+    log(f"K3 e2_scalar_mul {label} ({n} x {n_bits} bits, inner={inner}, "
+        f"rows={nrows}, {adds} complete adds): bit-equal to plain and "
+        f"host_ec; kernel {ms:.4f} ms, plain {plain:.1f} ms, bound {bnd:.4f} "
+        f"ms ({by})")
+    return dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                max_abs_err=max_abs_err(torch, got, want))
+
+
+# ----------------------------------------------------------------------
+# phase 4: the main path
+# ----------------------------------------------------------------------
+
+def host_work_ms() -> dict:
+    """The request's host-side loops at full width, timed alone."""
+    from vpin_tpu_torch.curve.fixed_base import scalars_to_digits
+    from vpin_tpu_torch.curve.host_ec import E2_ORDER
+    from vpin_tpu_torch.curve.weierstrass import scalars_to_bits
+    from vpin_tpu_torch.nn.prf import pf_vector
+    M = SIZE * SIZE
+    rng = random.Random(0)
+    out = {}
+    t = time.perf_counter()
+    rho = pf_vector(b"k" * 32, M, 16)
+    out["pf_vector"] = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    scalars_to_bits(rho, 128)
+    out["scalars_to_bits"] = (time.perf_counter() - t) * 1e3
+    rs = [rng.randrange(1, E2_ORDER - 1) for _ in range(M)]
+    t = time.perf_counter()
+    scalars_to_digits(rs)
+    out["scalars_to_digits"] = (time.perf_counter() - t) * 1e3
+    return out
+
+
+def run_requests(torch, dev):
+    from vpin_tpu_torch import kernels
+    from vpin_tpu_torch.device import synchronize
+    from vpin_tpu_torch.nn.elgamal import KeyPair
+    from vpin_tpu_torch.nn.models import run_conv_workload
+    key = KeyPair.generate(random.Random(0), device=dev)
+    img = np.random.RandomState(0).uniform(0.0, 1.0, (SIZE, SIZE)).astype(
+        np.float32)
+    results = []
+    for req in range(REQUESTS):
+        before = dict(kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        res = run_conv_workload(img, FILTER, key, random.Random(1 + req),
+                                defer_checks=True)
+        t1 = time.perf_counter()
+        res.flush_checks()                     # raises RLCCheckError
+        t2 = time.perf_counter()
+        fin = res.trace.finalize()
+        synchronize(dev)
+        t3 = time.perf_counter()
+        times = {"encrypt_ms": res.timings["encrypt"] * 1e3,
+                 "conv_ms": res.timings["inference"] * 1e3,
+                 "rlc_flush_ms": (t2 - t1) * 1e3,
+                 "finalize_ms": (t3 - t2) * 1e3,
+                 "request_ms": (t3 - t0) * 1e3}
+        launched = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+        log(f"request {req} ({'cold' if req == 0 else 'warm'}): "
+            + ", ".join(f"{k} {v:.1f}" for k, v in times.items())
+            + f"; launches {launched}")
+        results.append((res, fin, times))
+    return results
+
+
+def check_request(torch, res, fin, req: int) -> None:
+    from vpin_tpu_torch.curve.weierstrass import E2, PointW
+    from vpin_tpu_torch.nn.host_check import (
+        check_conv_outputs, check_conv_trace, corner_pixels)
+    from vpin_tpu_torch.nn.models import CONV_FILTERS
+    require(res.trace.num_mults == 18 and res.trace.num_adds == 16,
+            f"request {req}: {res.trace.num_mults} mults, "
+            f"{res.trace.num_adds} adds (want 18, 16)")
+    filt = CONV_FILTERS[FILTER]
+    check_conv_trace(fin, filt)
+    pixels = corner_pixels(SIZE, SIZE, 8, seed=req)
+    for half_in, half_out in zip(res.ciphertext, res.outputs):
+        image = E2.to_affine_host(half_in)
+        out = E2.to_affine_host(PointW(
+            *(c.reshape(-1, 8)[pixels] for c in half_out)))
+        full = np.empty((SIZE * SIZE,), dtype=object)
+        full[pixels] = list(out)
+        check_conv_outputs(image, full.reshape(SIZE, SIZE), filt, pixels)
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from vpin_tpu_torch import kernels
+
+    # -- phase 1 --
+    card = smi("name,power.limit")
+    log(card)
+    max_clock_mhz = float(smi("clocks.max.sm").split()[0])
+    dev = torch.device("cuda")
+    props = torch.cuda.get_device_properties(dev)
+    mul32_rate = MUL32_PER_CLOCK_PER_SM * props.multi_processor_count \
+        * max_clock_mhz * 1e6
+    log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
+        f"{props.multi_processor_count} SMs at up to {max_clock_mhz:.0f} MHz: "
+        f"{mul32_rate / 1e12:.2f} T 32-bit multiplies/s")
+
+    # -- phase 2 --
+    t = time.perf_counter()
+    logs = kernels.build()
+    log(f"build: {time.perf_counter() - t:.1f} s for {len(logs)} kernels")
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {name}: {line.strip()}")
+
+    # -- phase 3 --
+    k1 = check_mont_mul(torch, dev, mul32_rate)
+    k2, P = check_e2_add(torch, dev, mul32_rate)
+    M = SIZE * SIZE
+    f2 = FILTER * FILTER
+    k3 = check_ladder(torch, dev, mul32_rate, P, M * f2, 128, f2, M,
+                      "rho over windows")
+    check_ladder(torch, dev, mul32_rate, P, M, 128, 1, M, "rho over outputs")
+    check_ladder(torch, dev, mul32_rate, P, M * f2, 2, 1, f2,
+                 "filter weights", plain_repeats=3)
+    log("host work: " + ", ".join(f"{k} {v:.2f} ms"
+                                  for k, v in host_work_ms().items()))
+
+    # -- phase 4 --
+    for name in kernels.LAUNCHES:
+        kernels.LAUNCHES[name] = 0
+    results = run_requests(torch, dev)
+    launches = dict(kernels.LAUNCHES)
+    log(f"launches over {REQUESTS} requests: {launches}")
+    for req, (res, fin, _) in enumerate(results):
+        check_request(torch, res, fin, req)
+        log(f"request {req}: rLC ok, 18 mults / 16 adds, trace and 8 output "
+            f"pixels per half equal to host_ec")
+    warm = [r[2]["request_ms"] for r in results[1:]]
+    log(f"warm request median {statistics.median(warm):.1f} ms on {card}")
+
+    # -- phase 5 --
+    require(all(v > 0 for v in launches.values()),
+            f"a kernel was not launched on the main path: {launches}")
+    spec = [("mont_mul", "mont_mul.cu", "vpin_tpu/field/pallas_mont.py:97", k1),
+            ("e2_add", "e2_add.cu", "vpin_tpu/curve/pallas_ec.py:119", k2),
+            ("e2_scalar_mul", "e2_scalar_mul.cu",
+             "vpin_tpu/curve/pallas_ec.py:135", k3)]
+    line = {"kernels": [
+        {"name": name, "route": "cuda",
+         "source": f"vpin_tpu_torch/csrc/{src}", "replaces": replaces,
+         "launches": launches[name], "max_abs_err": row["max_abs_err"],
+         "ms": row["ms"], "plain_ms": row["plain_ms"],
+         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+         "library_ms": None}
+        for name, src, replaces, row in spec]}
+    print(json.dumps(line), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

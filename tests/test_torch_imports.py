@@ -1,0 +1,37 @@
+"""The port stands alone: no file of vpin_tpu_torch, nor chip_smoke.py,
+imports JAX or anything of vpin_tpu (checked on the source, by AST)."""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+FILES = sorted((ROOT / "vpin_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "vpin_tpu")
+
+
+def _imported_modules(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_vpin_tpu_imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = [m for m in _imported_modules(tree)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_the_walk_sees_the_package():
+    names = {p.relative_to(ROOT).as_posix() for p in FILES}
+    assert "vpin_tpu_torch/curve/cuda_ec.py" in names
+    assert "vpin_tpu_torch/nn/homomorphic.py" in names
+    tree = ast.parse("import jax.numpy as jnp\nfrom vpin_tpu.field import FQ\n"
+                     "from .field import FQ\n")
+    assert list(_imported_modules(tree)) == ["jax.numpy", "vpin_tpu.field"]
