@@ -5,15 +5,23 @@
 
 Phases:
   1. the card's name and power limit (nvidia-smi);
-  2. build the CUDA kernels from vpin_tpu_torch/csrc, all at once;
+  2. build the four CUDA kernels from vpin_tpu_torch/csrc, all at once;
   3. hold each kernel bit for bit against its plain PyTorch version on the
      card, at the main path's shapes plus edge and special cases, and time
      both (CUDA events, after warm-up);
-  4. the main path at full width: four encrypted conv3/32x32 requests
-     through run_conv_workload, each with its rLC check, 18/16 trace counts,
-     points on E2, 8 output pixels per half and the whole witness trace held
-     exactly against the host's curve arithmetic (curve/host_ec.py);
-  5. each kernel's launch count on the main path.
+  4. replay the transparent golden fixtures of crosscheck/gen_golden.py
+     (2 adds, 2 mults) with the witness and every table on the CUDA route
+     (every crossover lowered to 0): both challenge
+     streams and the proof bytes must equal crosscheck/golden/, which
+     vpin_tpu produced;
+  5. the main path at full width: four encrypted conv3/32x32 requests
+     through run_conv_workload, then the transparent CP-SNARK proofs of one
+     warm request's trace (16 adds, 18 mults), verified on the host.  Each
+     request has its rLC check, 18/16 trace counts, points on E2, 8 output
+     pixels per half and the whole witness trace held exactly against the
+     host's curve arithmetic (curve/host_ec.py); the proofs must verify and
+     have the reference's sizes;
+  6. each kernel's launch count on the main path.
 The line before the last is a JSON object with every kernel's numbers; the
 last is {"ok": true, "device": {...}}.  Any failure raises: the script then
 exits non-zero without that line.  Without a GPU it exits 1 at once.
@@ -38,10 +46,20 @@ HBM_BYTES_PER_S = 3.35e12
 # one CIOS Montgomery product over 8 x 32-bit limbs: 64 limb products for
 # a*b and 64 for m*N, each a lo and a hi multiply, plus 8 for m
 MUL32_PER_MONT = 2 * 64 + 2 * 64 + 8
+# the same product modulo p = 2^255 - 19 needs less: each of the 8 rounds
+# takes m*p as m*2^255 - 19*m, a lo and a hi multiply by 19
+MUL32_PER_MONT_P = 2 * 64 + 8 + 2 * 8
 MONT_PER_E2_ADD = 17
+MONT_PER_ED_ADD = 9
 FILTER = 3
 SIZE = 32
 REQUESTS = 4
+PROOF_TAPE_SEED = 3
+# transparent proof sizes of the conv3/32x32 trace: they depend only on the
+# instances' shapes (BENCH_r05.json: 19,920 B for the 18 mults; the 16-add
+# proof measured with vpin_tpu on the CPU)
+ADD_PROOF_BYTES = 6992
+MULT_PROOF_BYTES = 19920
 
 
 class SmokeError(Exception):
@@ -156,7 +174,8 @@ def check_mont_mul(torch, dev, rate):
                 f"mont_mul {F.name}: kernel != exact host product")
         ms = kernel_ms(torch, lambda: mont_mul(a, b, F), launches=200)
         plain = wall_ms(torch, lambda: mont_mul_plain(a, b, F), repeats=5)
-        bnd, by = bound_ms(MUL32_PER_MONT * n, 96 * n, rate)
+        per = MUL32_PER_MONT_P if F is FP else MUL32_PER_MONT
+        bnd, by = bound_ms(per * n, 96 * n, rate)
         log(f"K1 mont_mul {F.name} n={n}: bit-equal to plain; "
             f"kernel {ms:.4f} ms, plain {plain:.3f} ms, bound {bnd:.4f} ms "
             f"({by})")
@@ -277,8 +296,180 @@ def check_ladder(torch, dev, rate, P, n, n_bits, inner, nrows, label,
                 max_abs_err=max_abs_err(torch, got, want))
 
 
+def edwards_points(torch, dev, n: int, seed: int):
+    """Two batches of n ristretto points on the device: identity + P, P + P,
+    P + (-P), identity + identity and two from_uniform_bytes points first,
+    then random multiples of the basepoint, every point scaled by a random
+    lambda in (lX : lY : lZ : lT) so no two share a representation."""
+    from vpin_tpu_torch.curve import host_ristretto as H
+    from vpin_tpu_torch.curve.ristretto import RISTRETTO as R, PointE
+    from vpin_tpu_torch.curve.rpoint import pointe_from_host
+    from vpin_tpu_torch.field import FP
+    rng = random.Random(seed)
+    pool = [H.basepoint().mul(rng.randrange(1, 2**252)) for _ in range(64)]
+    P0, ID = pool[0], H.identity()
+    idx = np.random.RandomState(seed).randint(0, 64, size=n - 4)
+    lhs = [ID, P0, P0, ID] + [pool[i] for i in idx]
+    rhs = [P0, P0, -P0, ID] + [pool[i] for i in idx[::-1]]
+    P = pointe_from_host(lhs, dev)
+    Q = pointe_from_host(rhs, dev)
+    chunks = [bytes([seed, i]) * 32 for i in range(4)]
+    U = R.from_uniform_bytes(chunks, dev)
+    P = PointE(*(torch.cat([c[:4], u[:2], c[6:]]) for c, u in zip(P, U)))
+    Q = PointE(*(torch.cat([c[:4], u[2:], c[6:]]) for c, u in zip(Q, U)))
+
+    def scale(X, s):
+        lam = field_operands(torch, FP, n, s, dev)
+        lam[:8] = FP.ones((), dev)             # keep the edge cases as made
+        lam[lam.eq(0).all(-1)] = FP.ones((), dev)
+        return PointE(*(FP.mul(c, lam) for c in X))
+
+    return scale(P, seed + 1), scale(Q, seed + 2)
+
+
+def check_ed_add(torch, dev, rate):
+    from vpin_tpu_torch.curve import cuda_edwards, host_ristretto as H
+    from vpin_tpu_torch.curve.ristretto import RISTRETTO as R, PointE
+    n = 1 << 16
+    P2, Q2 = edwards_points(torch, dev, 2 * n, 5)
+    P, Q = (PointE(*(c[:n] for c in X)) for X in (P2, Q2))
+    got = cuda_edwards.ed_add(R, tuple(P), tuple(Q))
+    want = cuda_edwards.ed_add_plain(R, tuple(P), tuple(Q))
+    torch.cuda.synchronize()
+    require(all(torch.equal(g, w) for g, w in zip(got, want)),
+            "ed_add: kernel != plain")
+    err = max_abs_err(torch, got, want)
+    # and exact on the host for the edge cases and a few more
+    k = 24
+    hp = [H.decode(e) for e in R.encode_bytes(PointE(*(c[:k] for c in P)))]
+    hq = [H.decode(e) for e in R.encode_bytes(PointE(*(c[:k] for c in Q)))]
+    enc = R.encode_bytes(PointE(*(c[:k] for c in got)))
+    require(enc == [(a + b).encode() for a, b in zip(hp, hq)],
+            "ed_add: kernel != host_ristretto")
+    require(enc[2] == bytes(32) and enc[3] == bytes(32),
+            "ed_add: P + (-P) or identity + identity is not the identity")
+    # the Hyrax fold shape: 256 rows x 512 columns
+    F, G = (PointE(*(c.reshape(256, 512, 8) for c in X)) for X in (P2, Q2))
+    got2 = cuda_edwards.ed_add(R, tuple(F), tuple(G))
+    want2 = cuda_edwards.ed_add_plain(R, tuple(F), tuple(G))
+    torch.cuda.synchronize()
+    require(all(torch.equal(g, w) for g, w in zip(got2, want2)),
+            "ed_add 256x512: kernel != plain")
+    err = max(err, max_abs_err(torch, got2, want2))
+    ms = kernel_ms(torch, lambda: cuda_edwards.ed_add(R, tuple(P), tuple(Q)),
+                   launches=100)
+    plain = wall_ms(torch, lambda: cuda_edwards.ed_add_plain(
+        R, tuple(P), tuple(Q)), repeats=3)
+    bnd, by = bound_ms(MONT_PER_ED_ADD * MUL32_PER_MONT_P * n, 384 * n, rate)
+    log(f"K4 ed_add n={n}: bit-equal to plain (and at 256x512) and to "
+        f"host_ristretto; kernel {ms:.4f} ms, plain {plain:.3f} ms, bound "
+        f"{bnd:.4f} ms ({by})")
+    return dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                max_abs_err=err)
+
+
 # ----------------------------------------------------------------------
-# phase 4: the main path
+# phase 4: golden fixtures on the CUDA route
+# ----------------------------------------------------------------------
+
+def golden_fixture(kind: str, dev):
+    """The gadget of crosscheck/gen_golden.py's fixture, built with the
+    port's own host_ec and gadgets."""
+    from vpin_tpu_torch.curve.host_ec import E2_G_HOST, E2_ORDER
+    from vpin_tpu_torch.gadgets import point_addition_gadget, point_mult_gadget
+    if kind == "add":
+        rng = random.Random(2024)
+        px, py, rx, ry, rz = [], [], [], [], []
+        for t in range(2):
+            P = rng.randrange(1, E2_ORDER) * E2_G_HOST
+            if t == 1:
+                rz.append(1)
+                rx.append(0)
+                ry.append(0)
+            else:
+                Rp = rng.randrange(1, E2_ORDER) * E2_G_HOST
+                rz.append(0)
+                rx.append(Rp.x)
+                ry.append(Rp.y)
+            px.append(P.x)
+            py.append(P.y)
+        return point_addition_gadget(px, py, rx, ry, rz, device=dev)
+    rng = random.Random(2025)
+    ws, px, py = [], [], []
+    for _ in range(2):
+        ws.append(rng.randrange(1, 1 << 128))
+        P = rng.randrange(1, E2_ORDER) * E2_G_HOST
+        px.append(P.x)
+        py.append(P.y)
+    return point_mult_gadget(ws, px, py, n=128, device=dev)
+
+
+def replay_golden(torch, dev):
+    """Both transparent golden fixtures with the witness and every table on
+    the tensor route (HOST_POLY_MAX and DEVICE_WITNESS_THRESHOLD = 0), held
+    byte for byte against crosscheck/golden/."""
+    from pathlib import Path
+    from vpin_tpu_torch import kernels
+    from vpin_tpu_torch.gadgets import point_addition, point_mult
+    from vpin_tpu_torch.poly import dense
+    from vpin_tpu_torch.snark import (
+        SNARKGens, cp_commit_witness, cp_snark_prove, cp_snark_verify,
+    )
+    from vpin_tpu_torch.transcript import Transcript
+    from vpin_tpu_torch.utils.bincode import serialize_snark
+    golden_dir = Path(__file__).resolve().parent / "crosscheck" / "golden"
+    crossovers = [(dense, "HOST_POLY_MAX"),
+                  (point_addition, "DEVICE_WITNESS_THRESHOLD"),
+                  (point_mult, "DEVICE_WITNESS_THRESHOLD")]
+    saved = [getattr(m, name) for m, name in crossovers]
+    for m, name in crossovers:
+        setattr(m, name, 0)
+    try:
+        for kind, fname in (("add", "point_add_cp_challenges.json"),
+                            ("mult", "point_mult_cp_challenges.json")):
+            golden = json.loads((golden_dir / fname).read_text())
+            before = dict(kernels.LAUNCHES)
+            t = time.perf_counter()
+            inst, vp, vi, vf, inputs, nc, nv, ni, nnz = golden_fixture(kind, dev)
+            require(isinstance(vf, torch.Tensor) and vf.is_cuda,
+                    f"golden {kind}: witness not a CUDA tensor")
+            gens = SNARKGens(nc, nv, ni, nnz)
+            pv, cv, bv, cpc, cic = cp_commit_witness(vp, vi, vf, gens,
+                                                     tape_seed=11, device=dev)
+            require(not pv.is_host, f"golden {kind}: witness poly on the host")
+            plog, vlog = [], []
+            proof = cp_snark_prove(inst, vf, inputs, gens,
+                                   Transcript(b"snark_example", log=plog),
+                                   pv, cv, bv, tape_seed=11)
+            torch.cuda.synchronize()
+            t_prove = time.perf_counter() - t
+            ok = cp_snark_verify(proof, inst, inputs,
+                                 Transcript(b"snark_example", log=vlog),
+                                 gens, cpc, cic)
+            launched = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+            require(ok, f"golden {kind}: proof does not verify")
+            require([list(x) for x in plog] ==
+                    [list(x) for x in golden["prover_challenges"]],
+                    f"golden {kind}: prover challenges != {fname}")
+            require([list(x) for x in vlog] ==
+                    [list(x) for x in golden["verifier_challenges"]],
+                    f"golden {kind}: verifier challenges != {fname}")
+            blob = serialize_snark(proof)
+            require(blob.hex() == golden["proof_hex"],
+                    f"golden {kind}: proof bytes != {fname}")
+            require(launched["ed_add"] > 0 and launched["mont_mul"] > 0,
+                    f"golden {kind}: K4/K1 not launched: {launched}")
+            log(f"golden {kind}: {len(plog)} prover / {len(vlog)} verifier "
+                f"challenges and {len(blob)} proof bytes equal to {fname} on "
+                f"the CUDA route; prove {t_prove * 1e3:.1f} ms; launches "
+                f"{launched}")
+    finally:
+        for (m, name), value in zip(crossovers, saved):
+            setattr(m, name, value)
+
+
+# ----------------------------------------------------------------------
+# phase 5: the main path
 # ----------------------------------------------------------------------
 
 def host_work_ms() -> dict:
@@ -336,6 +527,35 @@ def run_requests(torch, dev):
     return results
 
 
+def prove_request(torch, dev, fin):
+    """The transparent CP-SNARK proofs of one request's trace (bench.py's
+    proof half with full_snark=False), each verified on the host."""
+    from vpin_tpu_torch import kernels
+    from vpin_tpu_torch.runner.proof_runner import (
+        prove_point_add, prove_point_mult, trace_args,
+    )
+    add, mult = trace_args(fin)
+    before = dict(kernels.LAUNCHES)
+    st_add = prove_point_add(*add, tape_seed=PROOF_TAPE_SEED, quiet=True,
+                             device=dev)
+    mid = dict(kernels.LAUNCHES)
+    st_mult = prove_point_mult(*mult, tape_seed=PROOF_TAPE_SEED, quiet=True,
+                               device=dev)
+    after = dict(kernels.LAUNCHES)
+    add_l = {k: mid[k] - before[k] for k in before}
+    mult_l = {k: after[k] - mid[k] for k in before}
+    require(st_add.size_bytes == ADD_PROOF_BYTES,
+            f"add proof is {st_add.size_bytes} B, want {ADD_PROOF_BYTES}")
+    require(st_mult.size_bytes == MULT_PROOF_BYTES,
+            f"mult proof is {st_mult.size_bytes} B, want {MULT_PROOF_BYTES}")
+    require(mult_l["ed_add"] > 0, f"K4 not launched in the mult proof: {mult_l}")
+    log(f"proof: add {st_add.size_bytes} B, mult {st_mult.size_bytes} B, both "
+        f"verified; prove_add_ms {st_add.gen_ms}, prove_mult_ms "
+        f"{st_mult.gen_ms}, verify_add_ms {st_add.ver_ms}, verify_mult_ms "
+        f"{st_mult.ver_ms}")
+    log(f"proof launches: add {add_l}; mult {mult_l}")
+
+
 def check_request(torch, res, fin, req: int) -> None:
     from vpin_tpu_torch.curve.weierstrass import E2, PointW
     from vpin_tpu_torch.nn.host_check import (
@@ -387,6 +607,7 @@ def main() -> int:
     # -- phase 3 --
     k1 = check_mont_mul(torch, dev, mul32_rate)
     k2, P = check_e2_add(torch, dev, mul32_rate)
+    k4 = check_ed_add(torch, dev, mul32_rate)
     M = SIZE * SIZE
     f2 = FILTER * FILTER
     k3 = check_ladder(torch, dev, mul32_rate, P, M * f2, 128, f2, M,
@@ -398,11 +619,17 @@ def main() -> int:
                                   for k, v in host_work_ms().items()))
 
     # -- phase 4 --
+    replay_golden(torch, dev)
+
+    # -- phase 5 --
     for name in kernels.LAUNCHES:
         kernels.LAUNCHES[name] = 0
     results = run_requests(torch, dev)
+    conv_launches = dict(kernels.LAUNCHES)
+    prove_request(torch, dev, results[1][1])
     launches = dict(kernels.LAUNCHES)
-    log(f"launches over {REQUESTS} requests: {launches}")
+    log(f"launches over {REQUESTS} requests: {conv_launches}; over them and "
+        f"one request's proof: {launches}")
     for req, (res, fin, _) in enumerate(results):
         check_request(torch, res, fin, req)
         log(f"request {req}: rLC ok, 18 mults / 16 adds, trace and 8 output "
@@ -410,13 +637,14 @@ def main() -> int:
     warm = [r[2]["request_ms"] for r in results[1:]]
     log(f"warm request median {statistics.median(warm):.1f} ms on {card}")
 
-    # -- phase 5 --
+    # -- phase 6 --
     require(all(v > 0 for v in launches.values()),
             f"a kernel was not launched on the main path: {launches}")
     spec = [("mont_mul", "mont_mul.cu", "vpin_tpu/field/pallas_mont.py:97", k1),
             ("e2_add", "e2_add.cu", "vpin_tpu/curve/pallas_ec.py:119", k2),
             ("e2_scalar_mul", "e2_scalar_mul.cu",
-             "vpin_tpu/curve/pallas_ec.py:135", k3)]
+             "vpin_tpu/curve/pallas_ec.py:135", k3),
+            ("ed_add", "ed_add.cu", "vpin_tpu/curve/pallas_edwards.py:58", k4)]
     line = {"kernels": [
         {"name": name, "route": "cuda",
          "source": f"vpin_tpu_torch/csrc/{src}", "replaces": replaces,

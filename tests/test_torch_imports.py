@@ -32,6 +32,7 @@ def test_the_walk_sees_the_package():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert "vpin_tpu_torch/curve/cuda_ec.py" in names
     assert "vpin_tpu_torch/nn/homomorphic.py" in names
+    assert "vpin_tpu_torch/snark/cp_snark.py" in names
     tree = ast.parse("import jax.numpy as jnp\nfrom vpin_tpu.field import FQ\n"
                      "from .field import FQ\n")
     assert list(_imported_modules(tree)) == ["jax.numpy", "vpin_tpu.field"]

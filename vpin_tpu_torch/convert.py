@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .curve.ristretto import PointE
 from .curve.weierstrass import PointW
 from .device import resolve_device
 from .field.limbs import to_numpy, to_tensor
@@ -53,6 +54,26 @@ def point_from_jax(P, device=None) -> PointW:
 def point_to_jax(P: PointW) -> tuple:
     """Port PointW -> (x, y, z) numpy arrays in vpin_tpu's limbs."""
     return tuple(tensor_to_jax(c) for c in P)
+
+
+def pointe_from_jax(P, device=None) -> PointE:
+    """vpin_tpu PointE (any (x, y, z, t) of (..., 16) arrays) -> port
+    PointE."""
+    return PointE(*(tensor_from_jax(c, device) for c in P))
+
+
+def pointe_to_jax(P: PointE) -> tuple:
+    """Port PointE -> (x, y, z, t) numpy arrays in vpin_tpu's limbs."""
+    return tuple(tensor_to_jax(c) for c in P)
+
+
+def fq_vector_from_jax(arr, device=None) -> torch.Tensor:
+    """A vpin_tpu Montgomery FQ vector (n, 16) (a witness, an eval table)
+    -> port limbs (n, 8)."""
+    t = tensor_from_jax(arr, device)
+    if t.dim() != 2:
+        raise ValueError("expected an (n, 16) vector of field elements")
+    return t
 
 
 def keypair_from_jax(key, device=None) -> KeyPair:

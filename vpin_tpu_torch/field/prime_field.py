@@ -136,6 +136,54 @@ class PrimeField:
         """Batched inverse via Fermat (a^(N-2)); inv(0) = 0."""
         return self.pow_bits(a, self._inv_exp_bits)
 
+    def sum_reduce(self, a, axis: int = 0):
+        """Field sum along one batch axis by a halving tree (an odd level is
+        padded with zero).  Addition is exact mod N, so any association
+        gives the same canonical limbs as the reference's strided scan."""
+        a = torch.movedim(a, axis, 0)
+        if a.shape[0] == 0:
+            return torch.zeros_like(a[0:1]).expand(a.shape[1:]).clone()
+        while a.shape[0] > 1:
+            n = a.shape[0]
+            if n % 2:
+                a = torch.cat([a, torch.zeros_like(a[:1])])
+                n += 1
+            a = self.add(a[:n // 2], a[n // 2:])
+        return a[0]
+
+    def dot(self, a, b, axis: int = 0):
+        """Field inner product along an axis."""
+        return self.sum_reduce(self.mul(a, b), axis=axis)
+
+    def limbs_to_bits(self, a_plain, n_bits: int = 253):
+        """Plain (non-Montgomery) limbs (..., 8) -> LSB-first bits
+        (..., n_bits) as int32 0/1."""
+        shifts = torch.arange(L.LIMB_BITS, device=a_plain.device)
+        bits = (L.widen(a_plain).unsqueeze(-1) >> shifts) & 1
+        return bits.reshape(a_plain.shape[:-1] + (256,))[..., :n_bits].to(
+            torch.int32)
+
+    # ------------------------------------------------------------------
+    # host scalar helpers (exact Python ints; the transcript uses them)
+    # ------------------------------------------------------------------
+
+    def from_bytes(self, b: bytes) -> int:
+        v = int.from_bytes(b, "little")
+        if v >= self.modulus:
+            raise ValueError("non-canonical bytes")
+        return v
+
+    def from_bytes_mod_order(self, b: bytes) -> int:
+        return int.from_bytes(b, "little") % self.modulus
+
+    def from_bytes_wide(self, b: bytes) -> int:
+        if len(b) != 64:
+            raise ValueError("from_bytes_wide takes 64 bytes")
+        return int.from_bytes(b, "little") % self.modulus
+
+    def to_bytes(self, v: int) -> bytes:
+        return int(v % self.modulus).to_bytes(32, "little")
+
 
 L_MODULUS = 2**252 + 27742317777372353535851937790883648493
 P_MODULUS = 2**255 - 19

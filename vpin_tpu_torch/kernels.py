@@ -35,6 +35,7 @@ SOURCES = {
     "mont_mul": "mont_mul.cu",
     "e2_add": "e2_add.cu",
     "e2_scalar_mul": "e2_scalar_mul.cu",
+    "ed_add": "ed_add.cu",
 }
 
 LAUNCHES = {name: 0 for name in SOURCES}
@@ -110,6 +111,7 @@ def _load(name: str):
             "mont_mul": [p] * 3 + [i64, consts, p],
             "e2_add": [p] * 9 + [i64, consts, p],
             "e2_scalar_mul": [p] * 7 + [i64, i32, i32, i64, i64, consts, p],
+            "ed_add": [p] * 12 + [i64, consts, p],
         }[name]
         fn.restype = ctypes.c_int
         _LOADED[name] = fn

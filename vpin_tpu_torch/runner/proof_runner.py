@@ -1,0 +1,198 @@
+"""Proof generation: witness JSON or trace -> CP-SNARK prove + verify.
+
+Port of vpin_tpu/runner/proof_runner.py, transparent mode only (the SPARK
+eval proof is not ported yet).  It prints the reference CLI's metric lines
+(vPIN_proof_generation/src/main.rs:14-46, proof_point_add.rs:23-113):
+
+    Point Addition Gadget...
+    Number of Point Additions: N
+    Proof size: N bytes
+    Proof generation time: N ms
+    Proof verification time: N ms
+    ...
+    Total proof size / generation time / verification time
+
+Witnesses load from a WitnessTrace (in-process) or from the
+`rust_files/<tag>` JSON layout.  The prover runs on ``device`` (the GPU
+unless the caller passes "cpu"); the verifier runs on the host.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+from ..device import resolve_device, synchronize
+from ..gadgets.point_addition import point_addition_gadget
+from ..gadgets.point_mult import point_mult_gadget
+from ..snark.cp_snark import (
+    SNARKGens, cp_commit_witness, cp_snark_prove, cp_snark_verify,
+)
+from ..transcript.merlin import Transcript
+from ..utils.timer import span
+
+
+def _bytes_to_int(row) -> int:
+    return int.from_bytes(bytes(int(b) & 0xFF for b in row), "little")
+
+
+def _load(d: str, name: str):
+    with open(os.path.join(d, name)) as fh:
+        return json.load(fh)
+
+
+def load_point_add_json(dir_path: str):
+    d = os.path.join(dir_path, "pointAdd")
+    px = [_bytes_to_int(r) for r in _load(d, "point_add_px_byte.json")]
+    py = [_bytes_to_int(r) for r in _load(d, "point_add_py_byte.json")]
+    rx = [_bytes_to_int(r) for r in _load(d, "point_add_rx_byte.json")]
+    ry = [_bytes_to_int(r) for r in _load(d, "point_add_ry_byte.json")]
+    rz = [int(v) for v in _load(d, "point_add_rz_byte.json")]
+    return px, py, rx, ry, rz
+
+
+def load_point_mult_json(dir_path: str):
+    d = os.path.join(dir_path, "pointMult")
+    weights = [int(w) for w in _load(d, "weight.json")]
+    px = [_bytes_to_int(r) for r in _load(d, "point_mult_px_byte.json")]
+    py = [_bytes_to_int(r) for r in _load(d, "point_mult_py_byte.json")]
+    return weights, px, py
+
+
+@dataclass
+class ProofStats:
+    size_bytes: int
+    gen_ms: int
+    ver_ms: int
+
+
+def _prove_gadget(gadget_out, tape_seed: Optional[int], device):
+    inst, vars_para, vars_input, vars_full, inputs, nc, nv, ni, nnz = gadget_out
+    gens = SNARKGens(nc, nv, ni, nnz)
+    with span("witness_commit"):
+        poly_vars, comm_vars, blind_vars, comm_para, comm_input = \
+            cp_commit_witness(vars_para, vars_input, vars_full, gens,
+                              tape_seed=tape_seed, device=device)
+    pt = Transcript(b"snark_example")
+    proof = cp_snark_prove(inst, vars_full, inputs, gens, pt,
+                           poly_vars, comm_vars, blind_vars,
+                           tape_seed=tape_seed)
+    return proof, inst, inputs, gens, comm_para, comm_input
+
+
+def _prove_and_verify(label: str, build, count: int, tape_seed, quiet,
+                      device) -> ProofStats:
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    if not quiet:
+        print(f"{label} Gadget...")
+        print(f"Number of {label}s: {count}")
+    with span("gadget"):
+        gadget = build(dev)
+    proof, inst, inputs, gens, comm_para, comm_input = _prove_gadget(
+        gadget, tape_seed, dev)
+    synchronize(dev)
+    size = proof.size()
+    gen_ms = int((time.perf_counter() - t0) * 1000)
+    if not quiet:
+        print(f"Proof size: {size} bytes")
+        print(f"Proof generation time: {gen_ms} ms")
+    t1 = time.perf_counter()
+    vt = Transcript(b"snark_example")
+    with span("verify"):
+        ok = cp_snark_verify(proof, inst, inputs, vt, gens, comm_para,
+                             comm_input)
+    if not ok:
+        raise AssertionError(f"{label.lower()} proof verification failed")
+    if not quiet:
+        print("Proof verification successful!")
+    ver_ms = int((time.perf_counter() - t1) * 1000)
+    if not quiet:
+        print(f"Proof verification time: {ver_ms} ms")
+    return ProofStats(size, gen_ms, ver_ms)
+
+
+def prove_point_add(px, py, rx, ry, rz, tape_seed=None, quiet=False,
+                    device=None) -> ProofStats:
+    return _prove_and_verify(
+        "Point Addition",
+        lambda dev: point_addition_gadget(px, py, rx, ry, rz, device=dev),
+        len(px), tape_seed, quiet, device)
+
+
+def prove_point_mult(weights, px, py, n_bits=128, tape_seed=None,
+                     quiet=False, device=None) -> ProofStats:
+    if weights and max(int(w) for w in weights) >= (1 << n_bits):
+        # wide rLC-combined FC scalars: the full-width double-and-add
+        # circuit (the reference u128 loader would panic, load_data.rs:21-23)
+        n_bits = 253
+    return _prove_and_verify(
+        "Point Multiplication",
+        lambda dev: point_mult_gadget(weights, px, py, n=n_bits, device=dev),
+        len(weights), tape_seed, quiet, device)
+
+
+def _print_totals(stats_add: ProofStats, stats_mult: ProofStats):
+    total = (stats_add.size_bytes + stats_mult.size_bytes,
+             stats_add.gen_ms + stats_mult.gen_ms,
+             stats_add.ver_ms + stats_mult.ver_ms)
+    print("\n====================================")
+    print(f"Total proof size: {total[0]} bytes")
+    print(f"Total proof generation time: {total[1]} ms")
+    print(f"Total proof verification time: {total[2]} ms")
+    print("====================================")
+    return total
+
+
+def prove_tag_dir(dir_path: str, n_bits=128, tape_seed=None,
+                  skip_mult=False, device=None) -> Tuple[int, int, int]:
+    """`cargo run -- <tag>` equivalent over a rust_files/<tag> directory."""
+    stats_add = prove_point_add(*load_point_add_json(dir_path),
+                                tape_seed=tape_seed, device=device)
+    print("")
+    weights = []
+    if not skip_mult and os.path.exists(
+            os.path.join(dir_path, "pointMult", "weight.json")):
+        weights, px, py = load_point_mult_json(dir_path)
+    if weights:
+        stats_mult = prove_point_mult(weights, px, py, n_bits=n_bits,
+                                      tape_seed=tape_seed, device=device)
+    else:
+        print("Number of Point Multiplications: 0")
+        print("Proof size: 0 bytes")
+        print("Proof generation time: 0 ms")
+        print("Proof verification time: 0 ms")
+        stats_mult = ProofStats(0, 0, 0)
+    return _print_totals(stats_add, stats_mult)
+
+
+def trace_args(fin, add_slice=None, mult_slice=None):
+    """A finalized WitnessTrace -> the arguments (px, py, rx, ry, rz) of
+    prove_point_add and (weights, px, py) of prove_point_mult, each over its
+    (start, stop) slice of the trace, or all of it."""
+    as_ = slice(*add_slice) if add_slice else slice(None)
+    ms = slice(*mult_slice) if mult_slice else slice(None)
+    add = tuple([int(v) for v in fin[k][as_]]
+                for k in ("add_px", "add_py", "add_rx", "add_ry"))
+    add += ([1 if i else 0 for i in fin["add_r_inf"][as_]],)
+    mult = tuple([int(v) for v in fin[k][ms]]
+                 for k in ("mult_scalars", "mult_px", "mult_py"))
+    return add, mult
+
+
+def prove_trace(trace, n_bits=128, tape_seed=None, mult_slice=None,
+                add_slice=None, device=None) -> Tuple[int, int, int]:
+    """Prove directly from an in-process WitnessTrace (no JSON round trip)."""
+    add, mult = trace_args(trace.finalize(), add_slice, mult_slice)
+    stats_add = prove_point_add(*add, tape_seed=tape_seed, device=device)
+    print("")
+    if mult[0]:
+        stats_mult = prove_point_mult(*mult, n_bits=n_bits,
+                                      tape_seed=tape_seed, device=device)
+    else:
+        print("Number of Point Multiplications: 0")
+        stats_mult = ProofStats(0, 0, 0)
+    return _print_totals(stats_add, stats_mult)

@@ -1,0 +1,222 @@
+"""Commit-and-prove Spartan SNARK (the vPIN L2 flow), transparent mode.
+
+Port of vpin_tpu/snark/cp_snark.py (reference
+vPIN_proof_generation/src/proof_point_add.rs:23-113 and commit_test.rs
+my_lib_prove / my_lib_verify):
+  1. commit vars_para and vars_input separately with one RandomTape;
+  2. combine the commitments homomorphically (C = C_para + C_input);
+  3. sat proof over the combined commitment (CP transcript semantics);
+  4. append the Ar/Br/Cr claims.
+Only transparent mode is ported: the verifier evaluates the public R1CS
+matrices itself.  The SPARK eval proof (``with_eval_proof=True``,
+``snark_encode``) raises: it is not ported yet.  The verifier runs on the
+host whatever the instance's size.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Optional, Tuple
+
+import torch
+
+from ..batch_verify import VerifyAccumulator
+from ..curve import host_ristretto as H
+from ..field import FQ
+from ..field.prime_field import L_MODULUS as L
+from ..poly.dense import DensePoly, factored_lens
+from ..transcript.merlin import RandomTape, Transcript
+from ..utils.errors import verify_guard
+from ..utils.timer import Timer, span
+from .r1cs import R1CSInstance
+from .r1csproof import (
+    PolyCommitment, R1CSGens, R1CSProof, poly_commit, r1cs_prove_cp,
+    r1cs_verify_cp,
+)
+
+SNARK_PROTOCOL = b"Spartan SNARK proof"
+SPARK_NOT_PORTED = "SPARK eval proof not ported yet"
+
+
+def snark_encode(inst: R1CSInstance, gens: "SNARKGens"):
+    """SNARK::encode (commit to the R1CS matrices): not ported yet."""
+    raise NotImplementedError(SPARK_NOT_PORTED)
+
+
+class SNARKGens:
+    """reference: lib.rs:295-327 (the sat-proof generators)."""
+
+    def __init__(self, num_cons: int, num_vars: int, num_inputs: int,
+                 num_nz_entries: int):
+        num_vars_padded = max(num_vars, num_inputs + 1)
+        if num_vars_padded & (num_vars_padded - 1):
+            num_vars_padded = 1 << num_vars_padded.bit_length()
+        self.num_vars_padded = num_vars_padded
+        self.num_cons = num_cons
+        self.gens_r1cs_sat = R1CSGens(b"gens_r1cs_sat", num_cons, num_vars_padded)
+        self.num_nz_entries = num_nz_entries
+
+
+@dataclass
+class CPSnarkProof:
+    r1cs_sat_proof: R1CSProof
+    inst_evals: Tuple[int, int, int]
+    r1cs_eval_proof: Optional[object] = None
+
+    def size(self) -> int:
+        """Serialized byte count (the reference measures proof size as
+        bincode::serialize(...).len(), proof_point_add.rs:96-98)."""
+        from ..utils.bincode import serialize_snark
+        return len(serialize_snark(self))
+
+
+def pad_assignment(vals, n: int):
+    """Zero-pad a host int list OR a Montgomery tensor to length n."""
+    if isinstance(vals, torch.Tensor):
+        if vals.shape[0] > n:
+            raise ValueError("pad_assignment: assignment longer than n")
+        if vals.shape[0] == n:
+            return vals
+        return torch.cat([vals, FQ.zeros((n - vals.shape[0],), vals.device)])
+    if len(vals) > n:
+        raise ValueError("pad_assignment: assignment longer than n")
+    return list(vals) + [0] * (n - len(vals))
+
+
+def _assignment_poly(vals, n: int, device) -> DensePoly:
+    padded = pad_assignment(vals, n)
+    if isinstance(padded, torch.Tensor):
+        return DensePoly(padded)
+    return DensePoly.from_ints(padded, device)
+
+
+def _sparse_entries(vals, max_frac=1 / 64):
+    """[(index, value)] when vals is sparse enough for the sparse Hyrax
+    path, else None.  Takes host int lists and Montgomery tensors."""
+    if isinstance(vals, torch.Tensor):
+        idx = torch.nonzero((vals != 0).any(-1)).reshape(-1)
+        if len(idx) > max(1, int(vals.shape[0] * max_frac)):
+            return None
+        if len(idx) == 0:
+            return []
+        vs = [int(v) for v in FQ.from_mont(vals[idx])]
+        return list(zip(idx.tolist(), vs))
+    idx = [i for i, v in enumerate(vals) if int(v) % L]
+    if len(idx) > max(1, int(len(vals) * max_frac)):
+        return None
+    return [(i, int(vals[i]) % L) for i in idx]
+
+
+def _hyrax_commit_sparse(n: int, entries, gens_pc, tape):
+    """Hyrax row commitments of a sparse assignment: row i commits as
+    blind_i*h + its few value*G terms, in host point arithmetic.  Blind
+    draws match poly_commit exactly (same tape labels and order), so the
+    bytes equal the dense path's."""
+    ell = n.bit_length() - 1
+    lnv, rnv = factored_lens(ell)
+    L_size, R_size = 1 << lnv, 1 << rnv
+    blinds = tape.random_vector(b"poly_blinds", L_size)
+    gens_n = gens_pc.gens.gens_n
+    per_row = {}
+    for i, v in entries:
+        per_row.setdefault(i // R_size, []).append((i % R_size, v))
+    rows = []
+    for r in range(L_size):
+        scalars = [blinds[r]]
+        pts = [gens_n.hh]
+        for c, v in per_row.get(r, ()):
+            scalars.append(v)
+            pts.append(gens_n.Gh[c])
+        rows.append(H.msm(scalars, pts).encode())
+    return PolyCommitment(rows), blinds
+
+
+def cp_commit_witness(vars_para, vars_input, full_vars, gens: SNARKGens,
+                      tape_seed: Optional[int] = None, device=None):
+    """Commit the two witness shares and the combined witness (reference
+    proof_point_add.rs:44-78).  Host int lists become tensors on
+    ``device`` when they are longer than HOST_POLY_MAX."""
+    n = gens.num_vars_padded
+    tape1 = RandomTape(bytes([2]), seed=tape_seed)
+
+    gens_pc = gens.gens_r1cs_sat.gens_pc
+    sparse_para = _sparse_entries(vars_para)
+    if sparse_para is not None:
+        # vars_para is the scalars-only share: all-zero for point-add, one
+        # entry per mult for point-mult (reference point_mult.rs:517)
+        comm_para, blind_para = _hyrax_commit_sparse(
+            n, sparse_para, gens_pc, tape1)
+    else:
+        poly_para = _assignment_poly(vars_para, n, device)
+        comm_para, blind_para = poly_commit(poly_para, gens_pc, tape1)
+    poly_input = _assignment_poly(vars_input, n, device)
+    comm_input, blind_input = poly_commit(poly_input, gens_pc, tape1)
+
+    # the combined commitment with blinds blind_para + blind_input is, by
+    # the Pedersen homomorphism, C_para[i] + C_input[i] row by row (what the
+    # reference asserts after recommitting, proof_point_add.rs:69-78)
+    poly_vars = _assignment_poly(full_vars, n, device)
+    blind_vars = [(a + b) % L for a, b in zip(blind_para, blind_input)]
+    pa = [H.decode(bytes(b)) for b in comm_para.C]
+    pi = [H.decode(bytes(b)) for b in comm_input.C]
+    comm_vars = PolyCommitment([(a + b).encode() for a, b in zip(pa, pi)])
+    return (poly_vars, comm_vars, blind_vars, comm_para, comm_input)
+
+
+def cp_snark_prove(inst: R1CSInstance, full_vars, inputs: List[int],
+                   gens: SNARKGens, transcript: Transcript,
+                   poly_vars: DensePoly, comm_vars: PolyCommitment,
+                   blind_vars: List[int], tape_seed: Optional[int] = None,
+                   with_eval_proof: bool = False) -> CPSnarkProof:
+    """my_lib_prove (commit_test.rs:59-133), transparent mode only."""
+    if with_eval_proof:
+        raise NotImplementedError(SPARK_NOT_PORTED)
+    t_all = Timer("SNARK::prove")
+    tape = RandomTape(b"proof", seed=tape_seed)
+    transcript.append_protocol_name(SNARK_PROTOCOL)
+
+    padded_vars = pad_assignment(full_vars, gens.num_vars_padded)
+    with span("R1CSProof::prove"):
+        sat_proof, rx, ry = r1cs_prove_cp(
+            inst, padded_vars, inputs, gens.gens_r1cs_sat, transcript,
+            tape, poly_vars, comm_vars, blind_vars)
+
+    with span("eval_sparse_polys"):
+        Ar, Br, Cr = inst.evaluate(rx, ry)
+    transcript.append_scalar(b"Ar_claim", Ar)
+    transcript.append_scalar(b"Br_claim", Br)
+    transcript.append_scalar(b"Cr_claim", Cr)
+    t_all.stop()
+    return CPSnarkProof(sat_proof, (Ar, Br, Cr))
+
+
+@verify_guard(failure=False)
+def cp_snark_verify(proof: CPSnarkProof, inst: R1CSInstance, inputs: List[int],
+                    transcript: Transcript, gens: SNARKGens,
+                    comm_para: PolyCommitment, comm_input: PolyCommitment,
+                    comm=None) -> bool:
+    """my_lib_verify (commit_test.rs:498-544) in transparent mode: the
+    verifier evaluates the public matrices on the host.  All group
+    equations defer into one batched final check."""
+    if comm is not None or proof.r1cs_eval_proof is not None:
+        raise NotImplementedError(SPARK_NOT_PORTED)
+    acc = VerifyAccumulator()
+    transcript.append_protocol_name(SNARK_PROTOCOL)
+
+    res = r1cs_verify_cp(
+        proof.r1cs_sat_proof, gens.num_vars_padded, inst.num_cons,
+        inputs, proof.inst_evals, transcript, gens.gens_r1cs_sat,
+        comm_para, comm_input, acc=acc)
+    if res is None:
+        return False
+    rx, ry = res
+
+    Ar, Br, Cr = proof.inst_evals
+    transcript.append_scalar(b"Ar_claim", Ar)
+    transcript.append_scalar(b"Br_claim", Br)
+    transcript.append_scalar(b"Cr_claim", Cr)
+
+    got = inst.evaluate_host(rx, ry)
+    if tuple(x % L for x in got) != tuple(x % L for x in proof.inst_evals):
+        return False
+    return acc.check()
