@@ -5,23 +5,31 @@
 
 Phases:
   1. the card's name and power limit (nvidia-smi);
-  2. build the four CUDA kernels from vpin_tpu_torch/csrc, all at once;
+  2. build the five CUDA kernels from vpin_tpu_torch/csrc, all at once, and
+     print their registers and spills;
   3. hold each kernel bit for bit against its plain PyTorch version on the
-     card, at the main path's shapes plus edge and special cases, and time
-     both (CUDA events, after warm-up);
-  4. replay the transparent golden fixtures of crosscheck/gen_golden.py
-     (2 adds, 2 mults) with the witness and every table on the CUDA route
-     (every crossover lowered to 0): both challenge
-     streams and the proof bytes must equal crosscheck/golden/, which
-     vpin_tpu produced;
+     card, at the main path's shapes plus edge and special cases (K4 up to
+     the 1,024 x 2,048 pairs of the SPARK comb_ops fold), and time both
+     (CUDA events, after warm-up).  K5, the ristretto ladder, is off the
+     main path: its own path (RistrettoGroup.msm_bits at tests/test_msm.py's
+     8 x 253 bits and at 4,096 x 253) runs here with the launch counts set
+     to 0 before it, and its sums must equal the K4 table MSM and, at 8
+     points, host_ristretto;
+  4. replay the four golden fixtures of crosscheck/gen_golden.py (2 adds,
+     2 mults; transparent and with the SPARK eval proof) with the witness
+     and every table on the CUDA route (every crossover lowered to 0): both
+     challenge streams and the proof bytes must equal crosscheck/golden/,
+     which vpin_tpu produced;
   5. the main path at full width: four encrypted conv3/32x32 requests
-     through run_conv_workload, then the transparent CP-SNARK proofs of one
-     warm request's trace (16 adds, 18 mults), verified on the host.  Each
-     request has its rLC check, 18/16 trace counts, points on E2, 8 output
-     pixels per half and the whole witness trace held exactly against the
-     host's curve arithmetic (curve/host_ec.py); the proofs must verify and
-     have the reference's sizes;
-  6. each kernel's launch count on the main path.
+     through run_conv_workload, then the CP-SNARK proofs of one warm
+     request's trace (16 adds, 18 mults), transparent and with the eval
+     proof, verified on the host.  Each request has its rLC check, 18/16
+     trace counts, points on E2, 8 output pixels per half and the whole
+     witness trace held exactly against the host's curve arithmetic
+     (curve/host_ec.py); the proofs must verify and have the sizes their
+     instances' shapes give, and K1 and K4 must run inside the mult proof's
+     SPARK spans (SNARK::encode, R1CSEvalProof::prove);
+  6. each kernel's launch count on the main path (K5's on its own path).
 The line before the last is a JSON object with every kernel's numbers; the
 last is {"ok": true, "device": {...}}.  Any failure raises: the script then
 exits non-zero without that line.  Without a GPU it exits 1 at once.
@@ -51,15 +59,25 @@ MUL32_PER_MONT = 2 * 64 + 2 * 64 + 8
 MUL32_PER_MONT_P = 2 * 64 + 8 + 2 * 8
 MONT_PER_E2_ADD = 17
 MONT_PER_ED_ADD = 9
+# K5's shapes: tests/test_msm.py's ladder MSM, and a batch that fills part
+# of the card
+LADDER_SHAPES = ((8, 253), (4096, 253))
+# K4's largest batch on the main path: the first fold of the SPARK comb_ops
+# commitment of the 18-mult proof (2^21 entries in 1,024 Hyrax rows, summed
+# through a digit table 4,096 wide), 1,024 rows x 2,048 pairs
+FOLD_SHAPE = (1024, 2048)
 FILTER = 3
 SIZE = 32
 REQUESTS = 4
 PROOF_TAPE_SEED = 3
 # transparent proof sizes of the conv3/32x32 trace: they depend only on the
 # instances' shapes (BENCH_r05.json: 19,920 B for the 18 mults; the 16-add
-# proof measured with vpin_tpu on the CPU)
+# proof measured with vpin_tpu on the CPU).  The full SNARK adds the eval
+# proof, whose size eval_proof_bytes derives from the shapes (BENCH_r05.json:
+# 27,240 B for the 16 adds).
 ADD_PROOF_BYTES = 6992
 MULT_PROOF_BYTES = 19920
+ADD_FULL_PROOF_BYTES = 27240
 
 
 class SmokeError(Exception):
@@ -123,6 +141,44 @@ def bound_ms(mul32: float, nbytes: float, mul32_rate: float):
     t_ops = mul32 / mul32_rate * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def next_pow2(n: int) -> int:
+    m = 1
+    while m < max(n, 1):
+        m *= 2
+    return m
+
+
+def eval_proof_bytes(num_cons: int, num_vars: int, nnz: int,
+                     batch: int = 3) -> int:
+    """Bincode bytes of the SPARK eval proof of an R1CS instance with these
+    counts (one input): Hyrax rows of the derefs, the product layer (two
+    batched product-circuit proofs) and the hash layer (three
+    PolyEvalProofs).  It gives the golden fixtures' 12,208 and 46,416 B."""
+    log2 = lambda n: n.bit_length() - 1                       # noqa: E731
+    vec = lambda k: 8 + 32 * k                                # noqa: E731
+    cons, nv = next_pow2(max(num_cons, 2)), next_pow2(max(num_vars, 2))
+    cells = 1 << max(log2(cons), log2(2 * nv))
+    N = next_pow2(nnz)
+
+    def polyeval(nvars):                      # bullet L, R; delta, beta, z1, z2
+        return 2 * vec(nvars - nvars // 2) + 4 * 32
+
+    def product_proof(K, leaves, k2):          # layer i has i cubic rounds
+        return 8 + sum(8 + i * vec(3) + 2 * vec(K)
+                       for i in range(log2(leaves))) + 3 * vec(k2)
+
+    ops_vars = log2(N) + log2(next_pow2(5 * batch))
+    mem_vars = log2(cells) + 1
+    derefs_vars = log2(N) + log2(next_pow2(2 * batch))
+    product_layer = (2 * (2 * 32 + 2 * vec(batch)) + 2 * vec(batch)
+                     + product_proof(4, cells, 0)
+                     + product_proof(4 * batch, N, 2 * batch))
+    hash_layer = (2 * (2 * vec(batch) + 32) + 3 * vec(batch)
+                  + polyeval(ops_vars) + polyeval(mem_vars)
+                  + polyeval(derefs_vars))
+    return vec(1 << (derefs_vars // 2)) + product_layer + hash_layer
 
 
 def max_abs_err(torch, got, want) -> int:
@@ -356,16 +412,122 @@ def check_ed_add(torch, dev, rate):
     require(all(torch.equal(g, w) for g, w in zip(got2, want2)),
             "ed_add 256x512: kernel != plain")
     err = max(err, max_abs_err(torch, got2, want2))
-    ms = kernel_ms(torch, lambda: cuda_edwards.ed_add(R, tuple(P), tuple(Q)),
-                   launches=100)
-    plain = wall_ms(torch, lambda: cuda_edwards.ed_add_plain(
-        R, tuple(P), tuple(Q)), repeats=3)
-    bnd, by = bound_ms(MONT_PER_ED_ADD * MUL32_PER_MONT_P * n, 384 * n, rate)
+    del got2, want2
+
+    def timed(A, B, m, launches, repeats):
+        ms = kernel_ms(torch, lambda: cuda_edwards.ed_add(R, tuple(A),
+                                                          tuple(B)),
+                       launches=launches)
+        plain = wall_ms(torch, lambda: cuda_edwards.ed_add_plain(
+            R, tuple(A), tuple(B)), repeats=repeats)
+        bnd, by = bound_ms(MONT_PER_ED_ADD * MUL32_PER_MONT_P * m, 384 * m,
+                           rate)
+        return dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by)
+
+    row = timed(P, Q, n, 100, 3)
     log(f"K4 ed_add n={n}: bit-equal to plain (and at 256x512) and to "
-        f"host_ristretto; kernel {ms:.4f} ms, plain {plain:.3f} ms, bound "
-        f"{bnd:.4f} ms ({by})")
-    return dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
-                max_abs_err=err)
+        f"host_ristretto; kernel {row['ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']})")
+    A, B = fold_points(torch, dev, (P2, Q2), FOLD_SHAPE)
+    got3 = cuda_edwards.ed_add(R, tuple(A), tuple(B))
+    want3 = cuda_edwards.ed_add_plain(R, tuple(A), tuple(B))
+    torch.cuda.synchronize()
+    require(all(torch.equal(g, w) for g, w in zip(got3, want3)),
+            f"ed_add {FOLD_SHAPE}: kernel != plain")
+    err = max(err, max_abs_err(torch, got3, want3))
+    del got3, want3
+    fold = timed(A, B, int(np.prod(FOLD_SHAPE)), 20, 1)
+    log(f"K4 ed_add {FOLD_SHAPE[0]} x {FOLD_SHAPE[1]} pairs (the SPARK "
+        f"comb_ops fold): bit-equal to plain; kernel {fold['ms']:.4f} ms, "
+        f"plain {fold['plain_ms']:.3f} ms, bound {fold['bound_ms']:.4f} ms "
+        f"({fold['bound_by']})")
+    row["max_abs_err"] = err
+    return row
+
+
+def fold_points(torch, dev, pairs, shape):
+    """The pairs tiled out to ``shape``, every point scaled by a random
+    nonzero lambda so no two share a representation."""
+    from vpin_tpu_torch.curve.ristretto import PointE
+    from vpin_tpu_torch.field import FP
+    m = int(np.prod(shape))
+    out = []
+    for X, seed in zip(pairs, (31, 32)):
+        reps = m // X.batch_shape[0]
+        lam = field_operands(torch, FP, m, seed, dev)
+        lam[lam.eq(0).all(-1)] = FP.ones((), dev)
+        out.append(PointE(*(FP.mul(c.repeat(reps, 1), lam).reshape(
+            shape + (8,)) for c in X)))
+    return tuple(out)
+
+
+def check_ed_ladder(torch, dev, rate):
+    """K5: its path (msm_bits) with the counts from 0, the sums against the
+    K4 table MSM and host_ristretto, then the kernel against its plain
+    version at each shape.  Returns ({n: row}, launches on its path)."""
+    from vpin_tpu_torch import kernels
+    from vpin_tpu_torch.curve import cuda_edwards, host_ristretto as H
+    from vpin_tpu_torch.curve.msm import host_digits, msm_oneshot
+    from vpin_tpu_torch.curve.ristretto import RISTRETTO as R, PointE
+    from vpin_tpu_torch.curve.weierstrass import pack_bits
+    from vpin_tpu_torch.field.limbs import to_tensor
+    from vpin_tpu_torch.field.prime_field import L_MODULUS
+    cases = []
+    for n, n_bits in LADDER_SHAPES:
+        P, _ = edwards_points(torch, dev, max(n, 64), 20 + n % 7)
+        P = PointE(*(c[:n] for c in P))
+        rows = np.random.RandomState(n).randint(0, 2, size=(n, n_bits)
+                                                ).astype(np.uint8)
+        rows[1] = 0                            # the zero scalar
+        rows[2] = 1                            # all bits set
+        rows[4] = 0
+        rows[4, 0] = 1                         # the scalar 1
+        ks = [int.from_bytes(np.packbits(r, bitorder="little").tobytes(),
+                             "little") % L_MODULUS for r in rows]
+        cases.append((n, n_bits, P, rows, ks))
+
+    for name in kernels.LAUNCHES:
+        kernels.LAUNCHES[name] = 0
+    sums = [R.msm_bits(P, rows) for _, _, P, rows, _ in cases]
+    torch.cuda.synchronize()
+    launches = kernels.LAUNCHES["ed_ladder"]
+    require(launches == len(cases), f"K5 path: {launches} ed_ladder launches")
+
+    out = {}
+    for (n, n_bits, P, rows, ks), total in zip(cases, sums):
+        enc = R.encode_bytes(total)
+        table = msm_oneshot(R, P, torch.as_tensor(host_digits(ks), device=dev))
+        require(enc == R.encode_bytes(table),
+                f"msm_bits {n}: != the K4 table MSM")
+        hp = [H.decode(e) for e in R.encode_bytes(PointE(*(c[:8] for c in P)))]
+        if n == 8:
+            require(enc == [H.msm(ks, hp).encode()],
+                    "msm_bits 8: != host_ristretto")
+        words = to_tensor(pack_bits(rows), dev)
+        got = cuda_edwards.ed_ladder(R, tuple(P), words, n_bits, 1, n)
+        t = time.perf_counter()
+        want = cuda_edwards.ed_ladder_plain(R, tuple(P), words, n_bits, 1, n)
+        torch.cuda.synchronize()
+        plain = (time.perf_counter() - t) * 1e3
+        require(all(torch.equal(g, w) for g, w in zip(got, want)),
+                f"ed_ladder {n} x {n_bits}: kernel != plain")
+        head = R.encode_bytes(PointE(*(c[:8] for c in got)))
+        require(head == [p.mul(k).encode() for p, k in zip(hp, ks)],
+                f"ed_ladder {n} x {n_bits}: kernel != host_ristretto")
+        ms = kernel_ms(torch, lambda: cuda_edwards.ed_ladder(
+            R, tuple(P), words, n_bits, 1, n), launches=3, repeats=3)
+        # the additions these bits need: one per set bit, one doubling per
+        # bit but the last
+        adds = int(rows.sum()) + n * (n_bits - 1)
+        bnd, by = bound_ms(adds * MONT_PER_ED_ADD * MUL32_PER_MONT_P,
+                           256 * n + words.numel() * 4, rate)
+        log(f"K5 ed_ladder {n} x {n_bits} bits ({adds} additions): bit-equal "
+            f"to plain and host_ristretto, msm_bits == table MSM; kernel "
+            f"{ms:.4f} ms, plain {plain:.1f} ms, bound {bnd:.4f} ms ({by})")
+        out[n] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                      max_abs_err=max_abs_err(torch, got, want))
+    return out, launches
 
 
 # ----------------------------------------------------------------------
@@ -405,15 +567,16 @@ def golden_fixture(kind: str, dev):
 
 
 def replay_golden(torch, dev):
-    """Both transparent golden fixtures with the witness and every table on
-    the tensor route (HOST_POLY_MAX and DEVICE_WITNESS_THRESHOLD = 0), held
-    byte for byte against crosscheck/golden/."""
+    """The four golden fixtures with the witness and every table on the
+    tensor route (HOST_POLY_MAX and DEVICE_WITNESS_THRESHOLD = 0), held byte
+    for byte against crosscheck/golden/."""
     from pathlib import Path
     from vpin_tpu_torch import kernels
     from vpin_tpu_torch.gadgets import point_addition, point_mult
     from vpin_tpu_torch.poly import dense
     from vpin_tpu_torch.snark import (
         SNARKGens, cp_commit_witness, cp_snark_prove, cp_snark_verify,
+        snark_encode,
     )
     from vpin_tpu_torch.transcript import Transcript
     from vpin_tpu_torch.utils.bincode import serialize_snark
@@ -425,44 +588,54 @@ def replay_golden(torch, dev):
     for m, name in crossovers:
         setattr(m, name, 0)
     try:
-        for kind, fname in (("add", "point_add_cp_challenges.json"),
-                            ("mult", "point_mult_cp_challenges.json")):
-            golden = json.loads((golden_dir / fname).read_text())
-            before = dict(kernels.LAUNCHES)
+        for kind in ("add", "mult"):
             t = time.perf_counter()
-            inst, vp, vi, vf, inputs, nc, nv, ni, nnz = golden_fixture(kind, dev)
+            gadget = golden_fixture(kind, dev)
+            t_gadget = time.perf_counter() - t
+            inst, vp, vi, vf, inputs, nc, nv, ni, nnz = gadget
             require(isinstance(vf, torch.Tensor) and vf.is_cuda,
                     f"golden {kind}: witness not a CUDA tensor")
-            gens = SNARKGens(nc, nv, ni, nnz)
-            pv, cv, bv, cpc, cic = cp_commit_witness(vp, vi, vf, gens,
-                                                     tape_seed=11, device=dev)
-            require(not pv.is_host, f"golden {kind}: witness poly on the host")
-            plog, vlog = [], []
-            proof = cp_snark_prove(inst, vf, inputs, gens,
-                                   Transcript(b"snark_example", log=plog),
-                                   pv, cv, bv, tape_seed=11)
-            torch.cuda.synchronize()
-            t_prove = time.perf_counter() - t
-            ok = cp_snark_verify(proof, inst, inputs,
-                                 Transcript(b"snark_example", log=vlog),
-                                 gens, cpc, cic)
-            launched = {k: kernels.LAUNCHES[k] - before[k] for k in before}
-            require(ok, f"golden {kind}: proof does not verify")
-            require([list(x) for x in plog] ==
-                    [list(x) for x in golden["prover_challenges"]],
-                    f"golden {kind}: prover challenges != {fname}")
-            require([list(x) for x in vlog] ==
-                    [list(x) for x in golden["verifier_challenges"]],
-                    f"golden {kind}: verifier challenges != {fname}")
-            blob = serialize_snark(proof)
-            require(blob.hex() == golden["proof_hex"],
-                    f"golden {kind}: proof bytes != {fname}")
-            require(launched["ed_add"] > 0 and launched["mont_mul"] > 0,
-                    f"golden {kind}: K4/K1 not launched: {launched}")
-            log(f"golden {kind}: {len(plog)} prover / {len(vlog)} verifier "
-                f"challenges and {len(blob)} proof bytes equal to {fname} on "
-                f"the CUDA route; prove {t_prove * 1e3:.1f} ms; launches "
-                f"{launched}")
+            for full in (False, True):
+                fname = (f"point_{kind}_cp_full_snark_challenges.json" if full
+                         else f"point_{kind}_cp_challenges.json")
+                golden = json.loads((golden_dir / fname).read_text())
+                before = dict(kernels.LAUNCHES)
+                t = time.perf_counter()
+                gens = SNARKGens(nc, nv, ni, nnz)
+                comm = decomm = None
+                if full:
+                    comm, decomm = snark_encode(inst, gens)
+                pv, cv, bv, cpc, cic = cp_commit_witness(
+                    vp, vi, vf, gens, tape_seed=11, device=dev)
+                require(not pv.is_host, f"golden {fname}: witness poly on "
+                        "the host")
+                plog, vlog = [], []
+                proof = cp_snark_prove(inst, vf, inputs, gens,
+                                       Transcript(b"snark_example", log=plog),
+                                       pv, cv, bv, decomm=decomm,
+                                       tape_seed=11, with_eval_proof=full)
+                torch.cuda.synchronize()
+                t_prove = time.perf_counter() - t
+                ok = cp_snark_verify(proof, inst, inputs,
+                                     Transcript(b"snark_example", log=vlog),
+                                     gens, cpc, cic, comm=comm)
+                launched = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+                require(ok, f"golden {fname}: proof does not verify")
+                require([list(x) for x in plog] ==
+                        [list(x) for x in golden["prover_challenges"]],
+                        f"golden {fname}: prover challenges differ")
+                require([list(x) for x in vlog] ==
+                        [list(x) for x in golden["verifier_challenges"]],
+                        f"golden {fname}: verifier challenges differ")
+                blob = serialize_snark(proof)
+                require(blob.hex() == golden["proof_hex"],
+                        f"golden {fname}: proof bytes differ")
+                require(launched["ed_add"] > 0 and launched["mont_mul"] > 0,
+                        f"golden {fname}: K4/K1 not launched: {launched}")
+                log(f"golden {fname}: {len(plog)} prover / {len(vlog)} "
+                    f"verifier challenges and {len(blob)} proof bytes equal "
+                    f"on the CUDA route; gadget {t_gadget * 1e3:.1f} ms, "
+                    f"prove {t_prove * 1e3:.1f} ms; launches {launched}")
     finally:
         for (m, name), value in zip(crossovers, saved):
             setattr(m, name, value)
@@ -528,32 +701,77 @@ def run_requests(torch, dev):
 
 
 def prove_request(torch, dev, fin):
-    """The transparent CP-SNARK proofs of one request's trace (bench.py's
-    proof half with full_snark=False), each verified on the host."""
+    """The CP-SNARK proofs of one request's trace, transparent (bench.py's
+    proof half with full_snark=False) and with the eval proof (the default),
+    each verified on the host.  Returns the full SNARK's numbers."""
     from vpin_tpu_torch import kernels
+    from vpin_tpu_torch.gadgets import point_addition, point_mult
     from vpin_tpu_torch.runner.proof_runner import (
         prove_point_add, prove_point_mult, trace_args,
     )
+    from vpin_tpu_torch.utils import timer
     add, mult = trace_args(fin)
-    before = dict(kernels.LAUNCHES)
-    st_add = prove_point_add(*add, tape_seed=PROOF_TAPE_SEED, quiet=True,
-                             device=dev)
-    mid = dict(kernels.LAUNCHES)
-    st_mult = prove_point_mult(*mult, tape_seed=PROOF_TAPE_SEED, quiet=True,
-                               device=dev)
-    after = dict(kernels.LAUNCHES)
-    add_l = {k: mid[k] - before[k] for k in before}
-    mult_l = {k: after[k] - mid[k] for k in before}
-    require(st_add.size_bytes == ADD_PROOF_BYTES,
-            f"add proof is {st_add.size_bytes} B, want {ADD_PROOF_BYTES}")
-    require(st_mult.size_bytes == MULT_PROOF_BYTES,
-            f"mult proof is {st_mult.size_bytes} B, want {MULT_PROOF_BYTES}")
-    require(mult_l["ed_add"] > 0, f"K4 not launched in the mult proof: {mult_l}")
-    log(f"proof: add {st_add.size_bytes} B, mult {st_mult.size_bytes} B, both "
-        f"verified; prove_add_ms {st_add.gen_ms}, prove_mult_ms "
-        f"{st_mult.gen_ms}, verify_add_ms {st_add.ver_ms}, verify_mult_ms "
-        f"{st_mult.ver_ms}")
-    log(f"proof launches: add {add_l}; mult {mult_l}")
+
+    def full_size(transparent, matrices):
+        A, B, C, nc, nv, _ = matrices
+        return transparent + eval_proof_bytes(
+            nc, nv, max(len(A[0]), len(B[0]), len(C[0])))
+
+    mult_full = full_size(MULT_PROOF_BYTES,
+                          point_mult.build_matrices(len(mult[0]), 128))
+    require(full_size(ADD_PROOF_BYTES, point_addition.build_matrices(
+        len(add[0]))) == ADD_FULL_PROOF_BYTES,
+        "eval_proof_bytes disagrees with the 16-add proof of BENCH_r05.json")
+    sizes = {False: (ADD_PROOF_BYTES, MULT_PROOF_BYTES),
+             True: (ADD_FULL_PROOF_BYTES, mult_full)}
+    out = {}
+    for full in (False, True):
+        mode = "full SNARK" if full else "transparent"
+        before = dict(kernels.LAUNCHES)
+        st_add = prove_point_add(*add, tape_seed=PROOF_TAPE_SEED, quiet=True,
+                                 device=dev, full_snark=full)
+        mid = dict(kernels.LAUNCHES)
+        timer.RECORD = []
+        try:
+            st_mult = prove_point_mult(*mult, tape_seed=PROOF_TAPE_SEED,
+                                       quiet=True, device=dev,
+                                       full_snark=full)
+            record = timer.RECORD
+        finally:
+            timer.RECORD = None
+        after = dict(kernels.LAUNCHES)
+        add_l = {k: mid[k] - before[k] for k in before}
+        mult_l = {k: after[k] - mid[k] for k in before}
+        want_add, want_mult = sizes[full]
+        require(st_add.size_bytes == want_add,
+                f"{mode} add proof is {st_add.size_bytes} B, want {want_add}")
+        require(st_mult.size_bytes == want_mult,
+                f"{mode} mult proof is {st_mult.size_bytes} B, want "
+                f"{want_mult}")
+        require(mult_l["ed_add"] > 0,
+                f"K4 not launched in the {mode} mult proof: {mult_l}")
+        spans = {}
+        for _, label, dt, launched in record:
+            ms, n = spans.get(label, (0.0, {}))
+            spans[label] = (ms + dt * 1e3, {k: n.get(k, 0) + v
+                                            for k, v in launched.items()})
+        if full:
+            for label in ("SNARK::encode", "R1CSEvalProof::prove"):
+                ms, launched = spans.get(label, (0.0, {}))
+                require(launched.get("mont_mul", 0) > 0
+                        and launched.get("ed_add", 0) > 0,
+                        f"{label}: K1 and K4 not both launched: {launched}")
+        log(f"{mode} proof: add {st_add.size_bytes} B, mult "
+            f"{st_mult.size_bytes} B, both verified; prove_add_ms "
+            f"{st_add.gen_ms}, prove_mult_ms {st_mult.gen_ms}, verify_add_ms "
+            f"{st_add.ver_ms}, verify_mult_ms {st_mult.ver_ms}")
+        log(f"{mode} proof launches: add {add_l}; mult {mult_l}")
+        log(f"{mode} mult proof spans: " + "; ".join(
+            f"{label} {ms:.1f} ms {({k: v for k, v in n.items() if v})}"
+            for label, (ms, n) in spans.items()))
+        out[full] = dict(add=st_add.__dict__, mult=st_mult.__dict__,
+                         add_launches=add_l, mult_launches=mult_l)
+    return out
 
 
 def check_request(torch, res, fin, req: int) -> None:
@@ -615,6 +833,8 @@ def main() -> int:
     check_ladder(torch, dev, mul32_rate, P, M, 128, 1, M, "rho over outputs")
     check_ladder(torch, dev, mul32_rate, P, M * f2, 2, 1, f2,
                  "filter weights", plain_repeats=3)
+    k5_rows, k5_launches = check_ed_ladder(torch, dev, mul32_rate)
+    k5 = k5_rows[LADDER_SHAPES[-1][0]]
     log("host work: " + ", ".join(f"{k} {v:.2f} ms"
                                   for k, v in host_work_ms().items()))
 
@@ -638,13 +858,16 @@ def main() -> int:
     log(f"warm request median {statistics.median(warm):.1f} ms on {card}")
 
     # -- phase 6 --
+    launches["ed_ladder"] = k5_launches        # K5's own path (phase 3)
     require(all(v > 0 for v in launches.values()),
-            f"a kernel was not launched on the main path: {launches}")
+            f"a kernel was not launched on its path: {launches}")
     spec = [("mont_mul", "mont_mul.cu", "vpin_tpu/field/pallas_mont.py:97", k1),
             ("e2_add", "e2_add.cu", "vpin_tpu/curve/pallas_ec.py:119", k2),
             ("e2_scalar_mul", "e2_scalar_mul.cu",
              "vpin_tpu/curve/pallas_ec.py:135", k3),
-            ("ed_add", "ed_add.cu", "vpin_tpu/curve/pallas_edwards.py:58", k4)]
+            ("ed_add", "ed_add.cu", "vpin_tpu/curve/pallas_edwards.py:58", k4),
+            ("ed_ladder", "ed_ladder.cu",
+             "vpin_tpu/curve/pallas_edwards.py:73", k5)]
     line = {"kernels": [
         {"name": name, "route": "cuda",
          "source": f"vpin_tpu_torch/csrc/{src}", "replaces": replaces,

@@ -145,15 +145,24 @@ def test_corner_pixels():
     assert {0, 31, 992, 1023} <= set(px)
 
 
-def test_cli_conv_on_cpu(tmp_path, capsys):
+def test_cli_conv_on_cpu(tmp_path, capsys, monkeypatch):
+    # --prove hands the recorded trace to the full-SNARK prover (its proofs
+    # are held against vpin_tpu in test_torch_snark.py and
+    # test_torch_spark.py; here only the hand-over is checked)
+    from vpin_tpu_torch.runner import proof_runner
+    proved = []
+    monkeypatch.setattr(proof_runner, "prove_trace",
+                        lambda trace, **kw: proved.append((trace, kw)))
     assert cli.main(["conv", "--size", "2", "--seed", "1", "--device", "cpu",
-                     "--export", str(tmp_path / "out")]) == 0
+                     "--export", str(tmp_path / "out"), "--prove"]) == 0
     out = capsys.readouterr().out
     assert "multiplications: 18" in out and "additions: 16" in out
     rz = json.loads((tmp_path / "out" / "pointAdd" / "point_add_rz_byte.json")
                     .read_text())
     assert len(rz) == 16
-    assert cli.main(["conv", "--prove", "--device", "cpu"]) == 2
+    (trace, kw), = proved
+    assert trace.num_mults == 18 and trace.num_adds == 16
+    assert kw["full_snark"] and kw["tape_seed"] == 1
 
 
 # ----------------------------------------------------------------------

@@ -33,6 +33,9 @@ def test_the_walk_sees_the_package():
     assert "vpin_tpu_torch/curve/cuda_ec.py" in names
     assert "vpin_tpu_torch/nn/homomorphic.py" in names
     assert "vpin_tpu_torch/snark/cp_snark.py" in names
+    assert "vpin_tpu_torch/spark/sparse_mlpoly.py" in names
+    assert "vpin_tpu_torch/spark/product_tree.py" in names
+    assert "vpin_tpu_torch/spark/__init__.py" in names
     tree = ast.parse("import jax.numpy as jnp\nfrom vpin_tpu.field import FQ\n"
                      "from .field import FQ\n")
     assert list(_imported_modules(tree)) == ["jax.numpy", "vpin_tpu.field"]

@@ -5,7 +5,8 @@ its plain PyTorch version, against RFC 9496 and vpin_tpu.
 Tolerance: exact.  K4's plain version uses the reference's formula, so its
 outputs are compared with RistrettoGroup._add_jnp and with ed_add_pallas
 (interpret mode) in extended limbs, bit for bit; encodings are compared
-as bytes.  The MSMs are held against vpin_tpu in test_torch_commit.py.
+as bytes.  The MSMs are held against vpin_tpu in test_torch_commit.py, the
+ladder (K5) in test_torch_ladder.py.
 """
 
 import random
@@ -170,3 +171,4 @@ def test_encode_decode_uniform_bytes_equal_vpin_tpu():
     for g, w in zip(back, jback):
         assert np.array_equal(convert.tensor_to_jax(g), np.asarray(w))
     assert bool(R.eq(back, pts).all())
+

@@ -1,6 +1,7 @@
-"""The port's transparent CP-SNARK (vpin_tpu_torch: poly, sumcheck, snark,
-gadgets, runner) on the CPU, where K1 and K4 run their plain PyTorch
-versions, against vpin_tpu and its golden vectors.
+"""The port's CP-SNARK (vpin_tpu_torch: poly, sumcheck, snark, gadgets,
+runner) on the CPU, where K1 and K4 run their plain PyTorch versions,
+against vpin_tpu and its golden vectors: the transparent proofs here, the
+SPARK eval proof in test_torch_spark.py.
 
 Tolerance: exact.  Field tables are compared as canonical ints; proofs as
 the Fiat-Shamir challenge streams of prover and verifier and the bincode
@@ -9,7 +10,7 @@ bytes of crosscheck/golden/ (vpin_tpu's own wire format).
 Slow tier: the 2-mult golden fixture (its 128-step witness scan makes about
 10^5 serial K1 calls, 100+ s on one CPU thread), the same fixture with every
 table on the tensor route, and the whole slice (a conv trace proven by both
-packages).
+packages, the adds with the eval proof).
 """
 
 import json
@@ -231,16 +232,29 @@ def test_point_add_golden_fixture_replays():
                                Transcript(b"snark_example"), gens, cpc, cic)
     with pytest.raises(ValueError):
         deserialize_snark(blob + b"\x00")
-    # the full SNARK raises, never silently falls back to transparent mode
-    with pytest.raises(NotImplementedError, match="SPARK eval proof not "
-                       "ported yet"):
-        snark_encode(inst, gens)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        cp_snark_verify(back, inst, inputs, Transcript(b"snark_example"),
-                        gens, cpc, cic, comm=object())
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        cp_snark_prove(inst, [], inputs, gens, Transcript(b"snark_example"),
-                       pv, None, [], with_eval_proof=True)
+    # the full SNARK over the same witness: its bytes extend the transparent
+    # proof's with the eval proof, and no mode is taken for the other
+    _, vp, vi, vf, *_ = gadget
+    comm, decomm = snark_encode(inst, gens)
+    pv, cv, bv, cpc, cic = cp_commit_witness(vp, vi, vf, gens, tape_seed=11,
+                                             device="cpu")
+    full = cp_snark_prove(inst, vf, inputs, gens,
+                          Transcript(b"snark_example"), pv, cv, bv,
+                          decomm=decomm, tape_seed=11, with_eval_proof=True)
+    fblob = serialize_snark(full)
+    assert len(fblob) == 16880 and fblob[:len(blob)] == blob
+    back = deserialize_snark(fblob)
+    assert serialize_snark(back) == fblob
+    assert cp_snark_verify(back, inst, inputs, Transcript(b"snark_example"),
+                           gens, cpc, cic, comm=comm)
+    assert not cp_snark_verify(back, inst, inputs,
+                               Transcript(b"snark_example"), gens, cpc, cic)
+    assert not cp_snark_verify(proof, inst, inputs,
+                               Transcript(b"snark_example"), gens, cpc, cic,
+                               comm=comm)
+    with pytest.raises(ValueError, match="decommitment"):
+        cp_snark_prove(inst, vf, inputs, gens, Transcript(b"snark_example"),
+                       pv, cv, bv, with_eval_proof=True)
 
 
 # about 10^5 serial K1 calls in the witness scan: 100+ s on one CPU thread
@@ -299,7 +313,7 @@ def _write_rust_files(d: Path, trace) -> None:
     dump("point_add_rz_byte.json", list(rz))
 
 
-def test_cli_prove_dir_round_trip(tmp_path, capsys):
+def test_cli_prove_dir_round_trip(tmp_path, capsys, monkeypatch):
     _write_rust_files(tmp_path / "tag", add_fixture_trace())
     args = ["prove", "--dir", str(tmp_path / "tag"), "--seed", "11",
             "--device", "cpu"]
@@ -310,10 +324,27 @@ def test_cli_prove_dir_round_trip(tmp_path, capsys):
     assert "Proof verification successful!" in out
     assert "Number of Point Multiplications: 0" in out
     assert "Total proof size: 4672 bytes" in out
-    assert cli.main(args) == 2
-    assert "SPARK eval proof not ported yet" in capsys.readouterr().err
-    assert cli.main(["conv", "--prove", "--device", "cpu"]) == 2
-    assert "SPARK eval proof not ported yet" in capsys.readouterr().err
+    # without --transparent: the full SNARK, with the eval proof
+    assert cli.main(args) == 0
+    out = capsys.readouterr().out
+    assert "Proof size: 16880 bytes" in out
+    assert "Proof verification successful!" in out
+    assert "Total proof size: 16880 bytes" in out
+    # conv --prove passes the same switch to the prover
+    from vpin_tpu_torch.nn import models
+    from vpin_tpu_torch.runner import proof_runner
+
+    class Workload:
+        num_mults, num_adds, trace = 18, 16, None
+
+    seen = []
+    monkeypatch.setattr(models, "run_conv_workload", lambda *a: Workload())
+    monkeypatch.setattr(proof_runner, "prove_trace",
+                        lambda trace, **kw: seen.append(kw["full_snark"]))
+    for extra in ([], ["--transparent"]):
+        assert cli.main(["conv", "--size", "2", "--prove", "--device", "cpu"]
+                        + extra) == 0
+    assert seen == [True, False]
 
 
 # ----------------------------------------------------------------------
@@ -323,14 +354,17 @@ def test_cli_prove_dir_round_trip(tmp_path, capsys):
 @pytest.mark.slow
 def test_slice_proofs_equal_vpin_tpu():
     """A port conv trace (2x2 image, fixed rLC keys) proven by both packages
-    with the same tape seed over adds [0, 4) and mults [0, 2): equal proof
-    bytes, and each package's verifier accepts both."""
+    with the same tape seed over adds [0, 4), with the eval proof, and mults
+    [0, 2), transparent: equal proof bytes, and each package's verifier
+    accepts both.  (The 2-mult eval proof on the CPU takes about 45 min in
+    each package; test_torch_spark.py replays its golden fixture.)"""
     from vpin_tpu.gadgets.point_addition import point_addition_gadget as jpa
     from vpin_tpu.gadgets.point_mult import point_mult_gadget as jpm
     from vpin_tpu.snark import SNARKGens as JGens
     from vpin_tpu.snark import cp_commit_witness as jcommit
     from vpin_tpu.snark import cp_snark_prove as jprove
     from vpin_tpu.snark import cp_snark_verify as jverify
+    from vpin_tpu.snark.cp_snark import snark_encode as jencode
     from vpin_tpu.transcript.merlin import Transcript as JTranscript
     from vpin_tpu.utils.bincode import deserialize_snark as jdes
     from vpin_tpu.utils.bincode import serialize_snark as jser
@@ -343,25 +377,31 @@ def test_slice_proofs_equal_vpin_tpu():
                             key_source=lambda: next(keys))
     add, mult = trace_args(res.trace.finalize(), (0, 4), (0, 2))
 
-    for port_gadget, ref_gadget in (
-            (point_addition_gadget(*add, device="cpu"), jpa(*add)),
-            (point_mult_gadget(*mult, device="cpu"), jpm(*mult))):
+    for port_gadget, ref_gadget, full in (
+            (point_addition_gadget(*add, device="cpu"), jpa(*add), True),
+            (point_mult_gadget(*mult, device="cpu"), jpm(*mult), False)):
         blobs = []
-        for gadget, Gens, commit, prove, ser, T, kw in (
-                (port_gadget, SNARKGens, cp_commit_witness, cp_snark_prove,
-                 serialize_snark, Transcript, {"device": "cpu"}),
-                (ref_gadget, JGens, jcommit, jprove, jser, JTranscript, {})):
+        for gadget, Gens, encode, commit, prove, ser, T, kw in (
+                (port_gadget, SNARKGens, snark_encode, cp_commit_witness,
+                 cp_snark_prove, serialize_snark, Transcript,
+                 {"device": "cpu"}),
+                (ref_gadget, JGens, jencode, jcommit, jprove, jser,
+                 JTranscript, {})):
             inst, vp, vi, vf, inputs, nc, nv, ni, nnz = gadget
             gens = Gens(nc, nv, ni, nnz)
+            comm, decomm = encode(inst, gens) if full else (None, None)
             pv, cv, bv, cpc, cic = commit(vp, vi, vf, gens, tape_seed=5, **kw)
             proof = prove(inst, vf, inputs, gens, T(b"snark_example"), pv, cv,
-                          bv, tape_seed=5)
-            blobs.append((ser(proof), inst, inputs, gens, cpc, cic))
+                          bv, decomm=decomm, tape_seed=5,
+                          with_eval_proof=full)
+            blobs.append((ser(proof), inst, inputs, gens, cpc, cic, comm))
         (pblob, *pctx), (jblob, *jctx) = blobs
         assert pblob == jblob
-        inst, inputs, gens, cpc, cic = pctx
+        inst, inputs, gens, cpc, cic, comm = pctx
         assert cp_snark_verify(deserialize_snark(jblob), inst, inputs,
-                               Transcript(b"snark_example"), gens, cpc, cic)
-        inst, inputs, gens, cpc, cic = jctx
+                               Transcript(b"snark_example"), gens, cpc, cic,
+                               comm=comm)
+        inst, inputs, gens, cpc, cic, comm = jctx
         assert jverify(jdes(pblob), inst, inputs,
-                       JTranscript(b"snark_example"), gens, cpc, cic)
+                       JTranscript(b"snark_example"), gens, cpc, cic,
+                       comm=comm)

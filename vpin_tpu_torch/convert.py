@@ -17,6 +17,7 @@ from .curve.weierstrass import PointW
 from .device import resolve_device
 from .field.limbs import to_numpy, to_tensor
 from .nn.elgamal import KeyPair
+from .snark.r1cs import SparseMat
 
 
 def limbs16_to_32(arr) -> np.ndarray:
@@ -79,3 +80,17 @@ def fq_vector_from_jax(arr, device=None) -> torch.Tensor:
 def keypair_from_jax(key, device=None) -> KeyPair:
     """Port KeyPair with the same secret as a vpin_tpu KeyPair."""
     return KeyPair.from_secret(int(key.x), device)
+
+
+def sparse_mat_from_jax(m) -> SparseMat:
+    """A vpin_tpu SparseMat (rows, cols, codes into a value codebook) -> the
+    port's, with the same entries, codebook and codes."""
+    book = [int(v) for v in m.codebook]
+    codes = np.asarray(m.codes, dtype=np.int64)
+    vals = np.empty(len(codes), dtype=object)
+    vals[:] = [book[k] for k in codes]
+    out = SparseMat((np.asarray(m.rows), np.asarray(m.cols), vals),
+                    m.num_rows, m.num_cols_hint)
+    if out.codebook != book or not np.array_equal(out.codes, codes):
+        raise ValueError("sparse_mat_from_jax: codebook order differs")
+    return out

@@ -6,24 +6,19 @@
 // tiles in VMEM with every field product a 16-bit-limb schoolbook pass.
 //
 // Design for Hopper: one thread per point pair; both points, the working set
-// and all 9 Montgomery products (field.cuh, CIOS over 32-bit limbs) stay in
-// registers, so the only memory traffic is 256 bytes in and 128 bytes out
-// per pair.  The formula and its operation order are those of
-// _ed_add_rows / RistrettoGroup._add_jnp: extended outputs are not unique,
-// so any other formula would break byte-equality with vpin_tpu.
+// and all 9 Montgomery products (ed.cuh over field.cuh, CIOS over 32-bit
+// limbs) stay in registers, so the only memory traffic is 256 bytes in and
+// 128 bytes out per pair.
 //
-// Bound on this card: 9 x 264 = 2,376 32-bit multiplies per pair against
-// 384 bytes, about 6 multiplies per byte, just above the card's ~5 per byte:
-// the kernel is bound by integer multiplies.  The MSM callers launch it on
-// batches of a few hundred to a few hundred thousand pairs.
-#include "field.cuh"
+// Bound on this card: 9 products per pair; modulo p each takes 152 32-bit
+// multiplies (m * p is m * 2^255 - 19 * m), so 1,368 multiplies against
+// 384 bytes, about 3.6 multiplies per byte, below the card's ~5 per byte:
+// the bytes bind, 0.0075 ms for 2^16 pairs at 3.35 TB/s.  The MSM callers
+// launch it on batches of a few hundred up to about 2^21 pairs (the first
+// fold of the SPARK comb_ops commitment, 1,024 rows of 2,048 pairs).
+#include "ed.cuh"
 
 #include <cstring>
-
-struct EdConsts {
-  FieldConsts f;          // F_p
-  uint32_t d2[VPIN_NL];   // 2d in Montgomery form
-};
 
 __global__ void __launch_bounds__(128) ed_add_kernel(
     const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
@@ -34,44 +29,11 @@ __global__ void __launch_bounds__(128) ed_add_kernel(
     uint32_t* __restrict__ ot, long long n, EdConsts ec) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const FieldConsts& c = ec.f;
-  const long long off = i * VPIN_NL;
-  uint32_t x1[VPIN_NL], y1[VPIN_NL], x2[VPIN_NL], y2[VPIN_NL];
-  uint32_t u[VPIN_NL], v[VPIN_NL], A[VPIN_NL], B[VPIN_NL], C[VPIN_NL], Dd[VPIN_NL];
-  fe_load(x1, px + off);
-  fe_load(y1, py + off);
-  fe_load(x2, qx + off);
-  fe_load(y2, qy + off);
-  // A = (Y1 - X1)(Y2 - X2), B = (Y1 + X1)(Y2 + X2)
-  fe_sub(u, y1, x1, c);
-  fe_sub(v, y2, x2, c);
-  fe_mul(A, u, v, c);
-  fe_add(u, y1, x1, c);
-  fe_add(v, y2, x2, c);
-  fe_mul(B, u, v, c);
-  // C = T1 (2d T2), Dd = Z1 (Z2 + Z2)
-  fe_load(u, qt + off);
-  fe_mul(v, ec.d2, u, c);
-  fe_load(u, pt + off);
-  fe_mul(C, u, v, c);
-  fe_load(u, qz + off);
-  fe_add(v, u, u, c);
-  fe_load(u, pz + off);
-  fe_mul(Dd, u, v, c);
-  // E = B - A, F = Dd - C, G = Dd + C, H = B + A (x1, y1, x2, y2 reused)
-  fe_sub(x1, B, A, c);
-  fe_sub(y1, Dd, C, c);
-  fe_add(x2, Dd, C, c);
-  fe_add(y2, B, A, c);
-  // X3 = E F, Y3 = G H, T3 = E H, Z3 = F G
-  fe_mul(u, x1, y1, c);
-  fe_store(ox + off, u);
-  fe_mul(u, x2, y2, c);
-  fe_store(oy + off, u);
-  fe_mul(u, x1, y2, c);
-  fe_store(ot + off, u);
-  fe_mul(u, y1, x2, c);
-  fe_store(oz + off, u);
+  EdPt p, q;
+  ed_load(p, px, py, pz, pt, i);
+  ed_load(q, qx, qy, qz, qt, i);
+  ed_add(p, p, q, ec);
+  ed_store(ox, oy, oz, ot, i, p);
 }
 
 // consts: EdConsts as 25 host uint32 words (n[8], one[8], n0inv, d2[8]).

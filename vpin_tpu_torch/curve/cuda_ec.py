@@ -96,7 +96,7 @@ def e2_scalar_mul(curve, P, words, n_bits: int, inner: int, nrows: int):
     words; point i takes row (i // inner) % nrows."""
     dev = kernels.check_limbs("e2_scalar_mul", *P)
     n = P[0].shape[0]
-    _check_bits(words, n_bits, nrows, inner, dev)
+    _check_bits("e2_scalar_mul", words, n_bits, nrows, inner, dev)
     if P[0].dim() != 2 or any(t.shape != P[0].shape for t in P):
         raise ValueError("e2_scalar_mul: points must be flat (n, 8) batches")
     if dev.type == "cpu":
@@ -112,14 +112,15 @@ def e2_scalar_mul(curve, P, words, n_bits: int, inner: int, nrows: int):
     return tuple(outs)
 
 
-def _check_bits(words, n_bits, nrows, inner, dev):
+def _check_bits(name, words, n_bits, nrows, inner, dev):
+    """Validate a ladder kernel's packed bit words (K3 and K5)."""
     if words.dtype != torch.int32 or words.device != dev or words.dim() != 2:
-        raise ValueError("e2_scalar_mul: bit words must be an int32 (rows, "
-                         "words) tensor on the points' device")
+        raise ValueError(f"{name}: bit words must be an int32 (rows, words) "
+                         "tensor on the points' device")
     if words.shape[0] != nrows or words.shape[1] * 32 < n_bits or nrows < 1 \
             or inner < 1 or n_bits < 0:
-        raise ValueError(f"e2_scalar_mul: {tuple(words.shape)} words do not "
-                         f"hold {nrows} rows of {n_bits} bits")
+        raise ValueError(f"{name}: {tuple(words.shape)} words do not hold "
+                         f"{nrows} rows of {n_bits} bits")
 
 
 def e2_scalar_mul_plain(curve, P, words, n_bits: int, inner: int, nrows: int):

@@ -1,8 +1,11 @@
-"""K4: batched ristretto255 (extended twisted-Edwards) addition over F_p.
+"""K4 and K5: batched ristretto255 (extended twisted-Edwards) addition over
+F_p, and the whole double-and-add ladder.
 
-Port of vpin_tpu/curve/pallas_edwards.py (``ed_add_pallas``).  The CUDA
-kernel is csrc/ed_add.cu; ``ed_add_plain`` is the same function in plain
-PyTorch, the kernel's yardstick on the card and what CPU tensors run.
+Port of vpin_tpu/curve/pallas_edwards.py (``ed_add_pallas`` and
+``ed_ladder_step_pallas``).  The CUDA kernels are csrc/ed_add.cu and
+csrc/ed_ladder.cu; ``ed_add_plain`` and ``ed_ladder_plain`` are the same
+functions in plain PyTorch, the kernels' yardsticks on the card and what CPU
+tensors run.
 
 Points travel as (x, y, z, t) tuples of int32 limb tensors (..., 8) in
 Montgomery form, with the identity (0 : 1 : 1 : 0).
@@ -15,7 +18,12 @@ import torch
 from .. import kernels
 from ..field.cuda_mont import mont_mul64
 from ..field.limbs import N_LIMBS, add_mod, narrow, sub_mod, widen
+from .cuda_ec import _check_bits
 
+
+# ----------------------------------------------------------------------
+# K4: unified addition
+# ----------------------------------------------------------------------
 
 def ed_add(group, P, Q):
     """P + Q over broadcastable batches of points: kernel K4 for CUDA
@@ -34,16 +42,22 @@ def ed_add(group, P, Q):
 
 
 def ed_add_plain(group, P, Q):
-    """The K4 kernel's function in plain PyTorch: add-2008-hwcd-3 (a = -1)
-    as in vpin_tpu's RistrettoGroup._add_jnp, on int64 working limbs, with
-    its field operations stacked by dependency stage."""
-    dev = P[0].device
-    k = group.F.consts(dev)
+    """The K4 kernel's function in plain PyTorch."""
+    k = group.F.consts(P[0].device)
+    out = _add64(tuple(widen(t) for t in P), tuple(widen(t) for t in Q),
+                 group.device_d2(P[0].device), k)
+    return tuple(narrow(t) for t in out)
+
+
+def _add64(P, Q, d2, k):
+    """add-2008-hwcd-3 (a = -1) on int64 working limbs, as in vpin_tpu's
+    RistrettoGroup._add_jnp, with its field operations stacked by dependency
+    stage so each stage is one batched call."""
     n = k.n32
     shape = torch.broadcast_shapes(P[0].shape, Q[0].shape)
-    X1, Y1, Z1, T1 = (widen(t).expand(shape) for t in P)
-    X2, Y2, Z2, T2 = (widen(t).expand(shape) for t in Q)
-    d2 = group.device_d2(dev).expand(shape)
+    X1, Y1, Z1, T1 = (t.expand(shape) for t in P)
+    X2, Y2, Z2, T2 = (t.expand(shape) for t in Q)
+    d2 = d2.expand(shape)
 
     def add(xs, ys):
         return add_mod(torch.stack(xs), torch.stack(ys), n).unbind(0)
@@ -61,4 +75,64 @@ def ed_add_plain(group, P, Q):
     E, F = sub([B, Dd], [A, C])
     G, H = add([Dd, B], [C, A])
     X3, Y3, T3, Z3 = mul([E, G, E, F], [F, H, H, G])
-    return tuple(narrow(t) for t in (X3, Y3, Z3, T3))
+    return X3, Y3, Z3, T3
+
+
+# ----------------------------------------------------------------------
+# K5: double-and-add ladder
+# ----------------------------------------------------------------------
+
+def ed_ladder(group, P, words, n_bits: int, inner: int, nrows: int):
+    """[k_i] P_i for a flat batch of n points (each coordinate (n, 8)).
+    ``words`` (nrows, W) int32 holds each scalar's bits LSB-first in 32-bit
+    words; point i takes row (i // inner) % nrows."""
+    dev = kernels.check_limbs("ed_ladder", *P)
+    n = P[0].shape[0]
+    _check_bits("ed_ladder", words, n_bits, nrows, inner, dev)
+    if P[0].dim() != 2 or any(t.shape != P[0].shape for t in P):
+        raise ValueError("ed_ladder: points must be flat (n, 8) batches")
+    if dev.type == "cpu":
+        return ed_ladder_plain(group, P, words, n_bits, inner, nrows)
+    ins = [kernels.kernel_operand(t, t.shape) for t in P]
+    words = words.contiguous()
+    outs = [torch.empty_like(ins[0]) for _ in range(4)]
+    if n:
+        kernels.launch("ed_ladder", dev,
+                       *(t.data_ptr() for t in ins), words.data_ptr(),
+                       *(t.data_ptr() for t in outs), n, n_bits,
+                       words.shape[1], inner, nrows, group.kernel_consts)
+    return tuple(outs)
+
+
+def ed_ladder_plain(group, P, words, n_bits: int, inner: int, nrows: int):
+    """The K5 kernel's function in plain PyTorch: the reference's scan of
+    ladder steps acc' = bit ? acc + base : acc, base' = base + base, with
+    acc = (0 : R : R : 0) at the start.  A step whose bits are all clear
+    skips the addition and the last step skips the doubling; neither changes
+    acc."""
+    dev = P[0].device
+    n = P[0].shape[0]
+    k = group.F.consts(dev)
+    d2 = group.device_d2(dev)
+    rows = (torch.arange(n, device=dev) // inner) % nrows
+    w = widen(words)[rows]                                    # (n, W)
+    base = tuple(widen(t) for t in P)
+    one = widen(group.F.ones((n,), dev))
+    zero = torch.zeros_like(one)
+    acc = (zero, one, one, zero)
+    for i in range(n_bits):
+        bit = ((w[:, i // 32] >> (i % 32)) & 1).bool().unsqueeze(-1)
+        last = i + 1 == n_bits
+        if not bool(bit.any()):
+            if not last:
+                base = _add64(base, base, d2, k)
+            continue
+        if last:
+            added = _add64(acc, base, d2, k)
+        else:
+            both = _add64(tuple(torch.cat(p) for p in zip(acc, base)),
+                          tuple(torch.cat(p) for p in zip(base, base)), d2, k)
+            added = tuple(t[:n] for t in both)
+            base = tuple(t[n:] for t in both)
+        acc = tuple(torch.where(bit, s, c) for s, c in zip(added, acc))
+    return tuple(narrow(t) for t in acc)

@@ -4,10 +4,9 @@ Port of vpin_tpu/curve/ristretto.py with curve/padded.py folded in: every
 method takes any batch shape (the reference padded batches to powers of two
 only to bound XLA compiles).  Extended-coordinate Edwards arithmetic over
 F_p (p = 2^255 - 19), RFC 9496 encode/decode and the Elligator map.
-Addition is kernel K4 (curve/cuda_edwards.py) for every batch size; the
+Addition is kernel K4 (curve/cuda_edwards.py) for every batch size, the
+whole double-and-add ladder of ``scalar_mul_bits`` is kernel K5, and the
 field products under encode/decode are kernel K1.
-
-``scalar_mul_bits`` and ``msm_bits`` (kernel K5) are not ported yet.
 """
 
 from __future__ import annotations
@@ -22,6 +21,7 @@ from ..device import resolve_device
 from ..field import FP
 from ..field import limbs as L
 from . import cuda_edwards
+from .weierstrass import bit_rows, pack_bits
 from .host_ristretto import (
     BASE_X, BASE_Y, D, D_MINUS_ONE_SQ, INVSQRT_A_MINUS_D, ONE_MINUS_D_SQ, P,
     RISTRETTO_BASEPOINT_COMPRESSED, SQRT_AD_MINUS_ONE, SQRT_M1,
@@ -156,6 +156,29 @@ class RistrettoGroup:
         if Pp.batch_shape[0] == 0:
             return self.identity(rest, Pp.device)
         return take(Pp, 0)
+
+    # -- scalar multiplication -------------------------------------------
+
+    def scalar_mul_bits(self, Pp: PointE, bits) -> PointE:
+        """[k]P where ``bits`` is a host array (..., n_bits) of LSB-first 0/1
+        bits whose batch shape broadcasts to P's: kernel K5, the whole ladder
+        in one launch, bit-equal to the reference's scan of ladder steps."""
+        bits = np.asarray(bits)
+        n_bits = bits.shape[-1]
+        shape = tuple(np.broadcast_shapes(Pp.batch_shape, bits.shape[:-1]))
+        n = int(np.prod(shape, dtype=np.int64))
+        inner, nrows, rows = bit_rows(bits, shape)
+        words = L.to_tensor(pack_bits(rows), Pp.device)
+        flat = tuple(c.expand(shape + (L.N_LIMBS,)).reshape(n, L.N_LIMBS)
+                     for c in Pp)
+        out = cuda_edwards.ed_ladder(self, flat, words, n_bits, inner, nrows)
+        return PointE(*(c.reshape(shape + (L.N_LIMBS,)) for c in out))
+
+    def msm_bits(self, Pp: PointE, bits) -> PointE:
+        """sum_i bits_i * P_i over the leading batch axis (ladders, then the
+        halving sum: limbs may differ from the reference's strided scan while
+        the encodings are equal)."""
+        return self.sum_points(self.scalar_mul_bits(Pp, bits), axis=0)
 
     # -- field square roots ---------------------------------------------
 

@@ -36,6 +36,7 @@ SOURCES = {
     "e2_add": "e2_add.cu",
     "e2_scalar_mul": "e2_scalar_mul.cu",
     "ed_add": "ed_add.cu",
+    "ed_ladder": "ed_ladder.cu",
 }
 
 LAUNCHES = {name: 0 for name in SOURCES}
@@ -112,6 +113,7 @@ def _load(name: str):
             "e2_add": [p] * 9 + [i64, consts, p],
             "e2_scalar_mul": [p] * 7 + [i64, i32, i32, i64, i64, consts, p],
             "ed_add": [p] * 12 + [i64, consts, p],
+            "ed_ladder": [p] * 9 + [i64, i32, i32, i64, i64, consts, p],
         }[name]
         fn.restype = ctypes.c_int
         _LOADED[name] = fn

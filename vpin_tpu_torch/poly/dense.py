@@ -15,6 +15,7 @@ from __future__ import annotations
 
 from typing import List, Sequence, Union
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
@@ -33,6 +34,20 @@ def host_tables_wanted(n: int) -> bool:
 def ints_to_dev(vals: Sequence[int], device=None) -> torch.Tensor:
     return FQ.to_mont([int(v) % L_MODULUS for v in vals],
                       resolve_device(device))
+
+
+def small_ints_to_dev(arr, device=None) -> torch.Tensor:
+    """Nonnegative int64 numpy array -> Montgomery limb tensor on ``device``:
+    the two low limbs split out in bulk, then one K1 product by R^2 (no
+    per-element Python; SPARK's addresses and timestamps)."""
+    arr = np.asarray(arr, dtype=np.int64)
+    if arr.size and arr.min() < 0:
+        raise ValueError("small_ints_to_dev takes nonnegative ints")
+    limbs = np.zeros(arr.shape + (L.N_LIMBS,), dtype=np.uint32)
+    limbs[..., 0] = (arr & L.MASK32).astype(np.uint32)
+    limbs[..., 1] = (arr >> 32).astype(np.uint32)
+    plain = L.to_tensor(limbs, resolve_device(device))
+    return FQ.mul(plain, L.to_tensor(FQ.R2_np, plain.device))
 
 
 def dev_to_ints(arr: torch.Tensor) -> List[int]:
@@ -67,6 +82,14 @@ def eq_evals_host(r: Sequence[int]) -> List[int]:
             nxt.append(hi)
         evals = nxt
     return evals
+
+
+def eq_eval_single(r: Sequence[int], rx: Sequence[int]) -> int:
+    """eq(r, rx) as an exact host int (reference EqPolynomial::evaluate)."""
+    acc = 1
+    for a, b in zip(r, rx):
+        acc = acc * ((a * b + (1 - a) * (1 - b)) % L_MODULUS) % L_MODULUS
+    return acc
 
 
 def factored_lens(ell: int):

@@ -1,15 +1,15 @@
 """Command-line entry points of the port.
 
-  python -m vpin_tpu_torch.runner.cli conv --filter 3 --size 32 --prove --transparent
+  python -m vpin_tpu_torch.runner.cli conv --filter 3 --size 32 --prove
   python -m vpin_tpu_torch.runner.cli conv --size 4 --device cpu --export DIR
-  python -m vpin_tpu_torch.runner.cli prove --dir DIR --transparent --seed 11
+  python -m vpin_tpu_torch.runner.cli prove --dir DIR --seed 11
 
 ``conv`` runs client and server in-process on the GPU (``--device cpu``
 runs the plain PyTorch versions), records the witness trace, can export it
 as the reference's JSON and can prove it.  ``prove`` proves a
-rust_files/<tag> witness directory.  Only transparent proofs are ported
-(the verifier evaluates the public R1CS matrices itself): without
-``--transparent`` both exit with status 2.
+rust_files/<tag> witness directory.  Both prove the full SNARK, with the
+SPARK eval proof over the committed R1CS matrices; ``--transparent`` skips
+the eval proof and has the verifier evaluate the public matrices itself.
 """
 
 from __future__ import annotations
@@ -20,9 +20,6 @@ import sys
 import time
 
 import numpy as np
-
-SPARK_MISSING = ("SPARK eval proof not ported yet: pass --transparent for "
-                 "the transparent CP-SNARK")
 
 
 def _make_image(size: int, seed: int) -> np.ndarray:
@@ -38,9 +35,6 @@ def _make_image(size: int, seed: int) -> np.ndarray:
 
 
 def cmd_conv(args) -> int:
-    if args.prove and not args.transparent:
-        print(SPARK_MISSING, file=sys.stderr)
-        return 2
     from ..device import resolve_device
     from ..nn.elgamal import KeyPair
     from ..nn.models import run_conv_workload
@@ -58,18 +52,17 @@ def cmd_conv(args) -> int:
         res.trace.export_json(args.export)
         print(f"Witness JSON exported to {args.export}")
     if args.prove:
-        prove_trace(res.trace, tape_seed=args.seed, device=device)
+        prove_trace(res.trace, tape_seed=args.seed, device=device,
+                    full_snark=not args.transparent)
     return 0
 
 
 def cmd_prove(args) -> int:
-    if not args.transparent:
-        print(SPARK_MISSING, file=sys.stderr)
-        return 2
     from ..device import resolve_device
     from .proof_runner import prove_tag_dir
     prove_tag_dir(args.dir, tape_seed=args.seed,
-                  device=resolve_device(args.device))
+                  device=resolve_device(args.device),
+                  full_snark=not args.transparent)
     return 0
 
 
@@ -83,8 +76,8 @@ def main(argv=None) -> int:
     c.add_argument("--export", type=str, default=None)
     c.add_argument("--prove", action="store_true")
     c.add_argument("--transparent", action="store_true",
-                   help="skip the R1CS eval proof (verifier reads matrices); "
-                        "required: the eval proof is not ported yet")
+                   help="skip the R1CS eval proof (the verifier evaluates "
+                        "the public matrices)")
     c.add_argument("--device", type=str, default="cuda")
     c.set_defaults(fn=cmd_conv)
 
@@ -92,7 +85,8 @@ def main(argv=None) -> int:
     c.add_argument("--dir", type=str, required=True)
     c.add_argument("--seed", type=int, default=None)
     c.add_argument("--transparent", action="store_true",
-                   help="required: the eval proof is not ported yet")
+                   help="skip the R1CS eval proof (the verifier evaluates "
+                        "the public matrices)")
     c.add_argument("--device", type=str, default="cuda")
     c.set_defaults(fn=cmd_prove)
     args = p.parse_args(argv)

@@ -1,8 +1,10 @@
 """Proof generation: witness JSON or trace -> CP-SNARK prove + verify.
 
-Port of vpin_tpu/runner/proof_runner.py, transparent mode only (the SPARK
-eval proof is not ported yet).  It prints the reference CLI's metric lines
-(vPIN_proof_generation/src/main.rs:14-46, proof_point_add.rs:23-113):
+Port of vpin_tpu/runner/proof_runner.py.  By default (``full_snark=True``)
+it proves the full SNARK, with the SPARK eval proof over the committed R1CS
+matrices; ``full_snark=False`` proves in transparent mode, where the verifier
+evaluates the public matrices itself.  It prints the reference CLI's metric
+lines (vPIN_proof_generation/src/main.rs:14-46, proof_point_add.rs:23-113):
 
     Point Addition Gadget...
     Number of Point Additions: N
@@ -30,6 +32,7 @@ from ..gadgets.point_addition import point_addition_gadget
 from ..gadgets.point_mult import point_mult_gadget
 from ..snark.cp_snark import (
     SNARKGens, cp_commit_witness, cp_snark_prove, cp_snark_verify,
+    snark_encode,
 )
 from ..transcript.merlin import Transcript
 from ..utils.timer import span
@@ -69,22 +72,28 @@ class ProofStats:
     ver_ms: int
 
 
-def _prove_gadget(gadget_out, tape_seed: Optional[int], device):
+def _prove_gadget(gadget_out, tape_seed: Optional[int], device,
+                  full_snark: bool):
     inst, vars_para, vars_input, vars_full, inputs, nc, nv, ni, nnz = gadget_out
     gens = SNARKGens(nc, nv, ni, nnz)
+    # SNARK::encode commits to the R1CS matrices, so that the verifier never
+    # reads them (reference lib.rs:347-358); it is part of the prove time
+    comm = decomm = None
+    if full_snark:
+        comm, decomm = snark_encode(inst, gens)
     with span("witness_commit"):
         poly_vars, comm_vars, blind_vars, comm_para, comm_input = \
             cp_commit_witness(vars_para, vars_input, vars_full, gens,
                               tape_seed=tape_seed, device=device)
     pt = Transcript(b"snark_example")
     proof = cp_snark_prove(inst, vars_full, inputs, gens, pt,
-                           poly_vars, comm_vars, blind_vars,
-                           tape_seed=tape_seed)
-    return proof, inst, inputs, gens, comm_para, comm_input
+                           poly_vars, comm_vars, blind_vars, decomm=decomm,
+                           tape_seed=tape_seed, with_eval_proof=full_snark)
+    return proof, inst, inputs, gens, comm_para, comm_input, comm
 
 
 def _prove_and_verify(label: str, build, count: int, tape_seed, quiet,
-                      device) -> ProofStats:
+                      device, full_snark) -> ProofStats:
     dev = resolve_device(device)
     t0 = time.perf_counter()
     if not quiet:
@@ -92,8 +101,8 @@ def _prove_and_verify(label: str, build, count: int, tape_seed, quiet,
         print(f"Number of {label}s: {count}")
     with span("gadget"):
         gadget = build(dev)
-    proof, inst, inputs, gens, comm_para, comm_input = _prove_gadget(
-        gadget, tape_seed, dev)
+    proof, inst, inputs, gens, comm_para, comm_input, comm = _prove_gadget(
+        gadget, tape_seed, dev, full_snark)
     synchronize(dev)
     size = proof.size()
     gen_ms = int((time.perf_counter() - t0) * 1000)
@@ -104,7 +113,7 @@ def _prove_and_verify(label: str, build, count: int, tape_seed, quiet,
     vt = Transcript(b"snark_example")
     with span("verify"):
         ok = cp_snark_verify(proof, inst, inputs, vt, gens, comm_para,
-                             comm_input)
+                             comm_input, comm=comm)
     if not ok:
         raise AssertionError(f"{label.lower()} proof verification failed")
     if not quiet:
@@ -116,15 +125,16 @@ def _prove_and_verify(label: str, build, count: int, tape_seed, quiet,
 
 
 def prove_point_add(px, py, rx, ry, rz, tape_seed=None, quiet=False,
-                    device=None) -> ProofStats:
+                    device=None, full_snark: bool = True) -> ProofStats:
     return _prove_and_verify(
         "Point Addition",
         lambda dev: point_addition_gadget(px, py, rx, ry, rz, device=dev),
-        len(px), tape_seed, quiet, device)
+        len(px), tape_seed, quiet, device, full_snark)
 
 
 def prove_point_mult(weights, px, py, n_bits=128, tape_seed=None,
-                     quiet=False, device=None) -> ProofStats:
+                     quiet=False, device=None,
+                     full_snark: bool = True) -> ProofStats:
     if weights and max(int(w) for w in weights) >= (1 << n_bits):
         # wide rLC-combined FC scalars: the full-width double-and-add
         # circuit (the reference u128 loader would panic, load_data.rs:21-23)
@@ -132,7 +142,7 @@ def prove_point_mult(weights, px, py, n_bits=128, tape_seed=None,
     return _prove_and_verify(
         "Point Multiplication",
         lambda dev: point_mult_gadget(weights, px, py, n=n_bits, device=dev),
-        len(weights), tape_seed, quiet, device)
+        len(weights), tape_seed, quiet, device, full_snark)
 
 
 def _print_totals(stats_add: ProofStats, stats_mult: ProofStats):
@@ -148,10 +158,12 @@ def _print_totals(stats_add: ProofStats, stats_mult: ProofStats):
 
 
 def prove_tag_dir(dir_path: str, n_bits=128, tape_seed=None,
-                  skip_mult=False, device=None) -> Tuple[int, int, int]:
+                  skip_mult=False, device=None,
+                  full_snark: bool = True) -> Tuple[int, int, int]:
     """`cargo run -- <tag>` equivalent over a rust_files/<tag> directory."""
     stats_add = prove_point_add(*load_point_add_json(dir_path),
-                                tape_seed=tape_seed, device=device)
+                                tape_seed=tape_seed, device=device,
+                                full_snark=full_snark)
     print("")
     weights = []
     if not skip_mult and os.path.exists(
@@ -159,7 +171,8 @@ def prove_tag_dir(dir_path: str, n_bits=128, tape_seed=None,
         weights, px, py = load_point_mult_json(dir_path)
     if weights:
         stats_mult = prove_point_mult(weights, px, py, n_bits=n_bits,
-                                      tape_seed=tape_seed, device=device)
+                                      tape_seed=tape_seed, device=device,
+                                      full_snark=full_snark)
     else:
         print("Number of Point Multiplications: 0")
         print("Proof size: 0 bytes")
@@ -184,14 +197,17 @@ def trace_args(fin, add_slice=None, mult_slice=None):
 
 
 def prove_trace(trace, n_bits=128, tape_seed=None, mult_slice=None,
-                add_slice=None, device=None) -> Tuple[int, int, int]:
+                add_slice=None, device=None,
+                full_snark: bool = True) -> Tuple[int, int, int]:
     """Prove directly from an in-process WitnessTrace (no JSON round trip)."""
     add, mult = trace_args(trace.finalize(), add_slice, mult_slice)
-    stats_add = prove_point_add(*add, tape_seed=tape_seed, device=device)
+    stats_add = prove_point_add(*add, tape_seed=tape_seed, device=device,
+                                full_snark=full_snark)
     print("")
     if mult[0]:
         stats_mult = prove_point_mult(*mult, n_bits=n_bits,
-                                      tape_seed=tape_seed, device=device)
+                                      tape_seed=tape_seed, device=device,
+                                      full_snark=full_snark)
     else:
         print("Number of Point Multiplications: 0")
         stats_mult = ProofStats(0, 0, 0)

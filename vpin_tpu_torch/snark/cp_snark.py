@@ -1,4 +1,4 @@
-"""Commit-and-prove Spartan SNARK (the vPIN L2 flow), transparent mode.
+"""Commit-and-prove Spartan SNARK (the vPIN L2 flow).
 
 Port of vpin_tpu/snark/cp_snark.py (reference
 vPIN_proof_generation/src/proof_point_add.rs:23-113 and commit_test.rs
@@ -6,11 +6,12 @@ my_lib_prove / my_lib_verify):
   1. commit vars_para and vars_input separately with one RandomTape;
   2. combine the commitments homomorphically (C = C_para + C_input);
   3. sat proof over the combined commitment (CP transcript semantics);
-  4. append the Ar/Br/Cr claims.
-Only transparent mode is ported: the verifier evaluates the public R1CS
-matrices itself.  The SPARK eval proof (``with_eval_proof=True``,
-``snark_encode``) raises: it is not ported yet.  The verifier runs on the
-host whatever the instance's size.
+  4. append the Ar/Br/Cr claims, then, in the full SNARK, prove them with
+     the R1CS eval proof (SPARK) over the matrices' commitment from
+     ``snark_encode``.
+In transparent mode (``with_eval_proof=False``) the verifier evaluates the
+public R1CS matrices itself.  The verifier runs on the host whatever the
+instance's size.
 """
 
 from __future__ import annotations
@@ -25,6 +26,9 @@ from ..curve import host_ristretto as H
 from ..field import FQ
 from ..field.prime_field import L_MODULUS as L
 from ..poly.dense import DensePoly, factored_lens
+# a module reference: spark/sparse_mlpoly.py imports snark/r1csproof.py, so
+# either package may be the one imported first
+from ..spark import sparse_mlpoly as spark
 from ..transcript.merlin import RandomTape, Transcript
 from ..utils.errors import verify_guard
 from ..utils.timer import Timer, span
@@ -35,16 +39,27 @@ from .r1csproof import (
 )
 
 SNARK_PROTOCOL = b"Spartan SNARK proof"
-SPARK_NOT_PORTED = "SPARK eval proof not ported yet"
 
 
 def snark_encode(inst: R1CSInstance, gens: "SNARKGens"):
-    """SNARK::encode (commit to the R1CS matrices): not ported yet."""
-    raise NotImplementedError(SPARK_NOT_PORTED)
+    """SNARK::encode: commit to the R1CS matrices (reference lib.rs:340-358)
+    on the instance's device.  Returns (SparseMatPolyCommitment, dense
+    decommitment)."""
+    num_poly_vars_x = inst.num_cons.bit_length() - 1
+    num_poly_vars_y = (2 * inst.num_vars).bit_length() - 1
+    with span("SNARK::encode"):
+        return spark.multi_commit([inst.A, inst.B, inst.C], num_poly_vars_x,
+                                  num_poly_vars_y, gens.gens_r1cs_eval,
+                                  device=inst.device)
+
+
+def _ceil_log2(n: int) -> int:
+    return (n - 1).bit_length() if n > 1 else 0
 
 
 class SNARKGens:
-    """reference: lib.rs:295-327 (the sat-proof generators)."""
+    """reference: lib.rs:295-327; the eval-proof generators are derived on
+    first use."""
 
     def __init__(self, num_cons: int, num_vars: int, num_inputs: int,
                  num_nz_entries: int):
@@ -55,13 +70,24 @@ class SNARKGens:
         self.num_cons = num_cons
         self.gens_r1cs_sat = R1CSGens(b"gens_r1cs_sat", num_cons, num_vars_padded)
         self.num_nz_entries = num_nz_entries
+        self._gens_r1cs_eval = None
+
+    @property
+    def gens_r1cs_eval(self) -> "spark.SparseMatPolyCommitmentGens":
+        if self._gens_r1cs_eval is None:
+            # reference R1CSCommitmentGens::new (r1csinstance.rs:33-49)
+            self._gens_r1cs_eval = spark.SparseMatPolyCommitmentGens(
+                b"gens_r1cs_eval", _ceil_log2(max(self.num_cons, 2)),
+                _ceil_log2(2 * self.num_vars_padded), self.num_nz_entries,
+                batch_size=3)
+        return self._gens_r1cs_eval
 
 
 @dataclass
 class CPSnarkProof:
     r1cs_sat_proof: R1CSProof
     inst_evals: Tuple[int, int, int]
-    r1cs_eval_proof: Optional[object] = None
+    r1cs_eval_proof: Optional["spark.R1CSEvalProof"] = None
 
     def size(self) -> int:
         """Serialized byte count (the reference measures proof size as
@@ -166,11 +192,14 @@ def cp_commit_witness(vars_para, vars_input, full_vars, gens: SNARKGens,
 def cp_snark_prove(inst: R1CSInstance, full_vars, inputs: List[int],
                    gens: SNARKGens, transcript: Transcript,
                    poly_vars: DensePoly, comm_vars: PolyCommitment,
-                   blind_vars: List[int], tape_seed: Optional[int] = None,
+                   blind_vars: List[int], decomm=None,
+                   tape_seed: Optional[int] = None,
                    with_eval_proof: bool = False) -> CPSnarkProof:
-    """my_lib_prove (commit_test.rs:59-133), transparent mode only."""
-    if with_eval_proof:
-        raise NotImplementedError(SPARK_NOT_PORTED)
+    """my_lib_prove (commit_test.rs:59-133).  The full SNARK
+    (``with_eval_proof``) takes ``decomm``, the dense matrices from
+    ``snark_encode``."""
+    if with_eval_proof and decomm is None:
+        raise ValueError("the eval proof needs snark_encode's decommitment")
     t_all = Timer("SNARK::prove")
     tape = RandomTape(b"proof", seed=tape_seed)
     transcript.append_protocol_name(SNARK_PROTOCOL)
@@ -186,8 +215,15 @@ def cp_snark_prove(inst: R1CSInstance, full_vars, inputs: List[int],
     transcript.append_scalar(b"Ar_claim", Ar)
     transcript.append_scalar(b"Br_claim", Br)
     transcript.append_scalar(b"Cr_claim", Cr)
+
+    eval_proof = None
+    if with_eval_proof:
+        with span("R1CSEvalProof::prove"):
+            eval_proof = spark.R1CSEvalProof.prove(
+                decomm, rx, ry, (Ar, Br, Cr), gens.gens_r1cs_eval,
+                transcript, tape)
     t_all.stop()
-    return CPSnarkProof(sat_proof, (Ar, Br, Cr))
+    return CPSnarkProof(sat_proof, (Ar, Br, Cr), eval_proof)
 
 
 @verify_guard(failure=False)
@@ -195,11 +231,13 @@ def cp_snark_verify(proof: CPSnarkProof, inst: R1CSInstance, inputs: List[int],
                     transcript: Transcript, gens: SNARKGens,
                     comm_para: PolyCommitment, comm_input: PolyCommitment,
                     comm=None) -> bool:
-    """my_lib_verify (commit_test.rs:498-544) in transparent mode: the
-    verifier evaluates the public matrices on the host.  All group
-    equations defer into one batched final check."""
-    if comm is not None or proof.r1cs_eval_proof is not None:
-        raise NotImplementedError(SPARK_NOT_PORTED)
+    """my_lib_verify (commit_test.rs:498-544).  With ``comm`` (the
+    matrices' commitment from ``snark_encode``) the proof must carry the
+    eval proof, which is checked against it; without, the proof must be
+    transparent and the verifier evaluates the public matrices on the host.
+    All group equations defer into one batched final check."""
+    if (comm is None) != (proof.r1cs_eval_proof is None):
+        return False
     acc = VerifyAccumulator()
     transcript.append_protocol_name(SNARK_PROTOCOL)
 
@@ -216,7 +254,13 @@ def cp_snark_verify(proof: CPSnarkProof, inst: R1CSInstance, inputs: List[int],
     transcript.append_scalar(b"Br_claim", Br)
     transcript.append_scalar(b"Cr_claim", Cr)
 
-    got = inst.evaluate_host(rx, ry)
-    if tuple(x % L for x in got) != tuple(x % L for x in proof.inst_evals):
-        return False
+    if comm is not None:
+        if not proof.r1cs_eval_proof.verify(
+                comm, rx, ry, proof.inst_evals, gens.gens_r1cs_eval,
+                transcript, acc=acc):
+            return False
+    else:
+        got = inst.evaluate_host(rx, ry)
+        if tuple(x % L for x in got) != tuple(x % L for x in proof.inst_evals):
+            return False
     return acc.check()

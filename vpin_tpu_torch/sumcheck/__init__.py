@@ -1,3 +1,3 @@
-from .sumcheck import UniPoly, ZKSumcheckInstanceProof
+from .sumcheck import SumcheckInstanceProof, UniPoly, ZKSumcheckInstanceProof
 
-__all__ = ["UniPoly", "ZKSumcheckInstanceProof"]
+__all__ = ["UniPoly", "SumcheckInstanceProof", "ZKSumcheckInstanceProof"]

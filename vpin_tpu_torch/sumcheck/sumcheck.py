@@ -5,14 +5,14 @@ unipoly.rs), bit for bit on the transcript.  Each round's evaluation sums
 and the binding of the tables run as batched tensor expressions of K1
 products over the halved tables; the per-round protocol (UniPoly
 interpolation, Pedersen commitments, DotProductProof) is exact host
-arithmetic.  The non-ZK sumcheck of SPARK's product circuits is not ported
-yet.
+arithmetic.  The non-ZK sumcheck (SPARK's product circuits) shares the
+round sums.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Sequence
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -21,6 +21,7 @@ from ..curve.rpoint import RPoint, decompress_many
 from ..field import FQ
 from ..field.prime_field import L_MODULUS as L
 from ..nizk.sigma import DotProductProof, commit1, commitN
+from ..poly.dense import DensePoly
 from ..transcript.merlin import Transcript
 from ..utils.errors import verify_guard
 
@@ -94,27 +95,38 @@ class UniPoly:
 # round evaluations and binds
 # ----------------------------------------------------------------------
 
-def round_evals(kind: str, tables: Sequence[torch.Tensor]) -> List[int]:
-    """Round evaluation sums over (2n, 8) tables, as host ints:
+def round_sums(kind: str, tables: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Round evaluation sums over tables (..., 2n, 8), halved and summed
+    along their second-to-last axis, as Montgomery limbs (points, ..., 8):
       quad            sum A*B at t = 0, 2
+      cubic           sum A*B*C at t = 0, 2, 3
       cubic_additive  sum A*(B*C - D) at t = 0, 2, 3
     where a table at t is lo + t (hi - lo).  The points t are stacked on a
     leading axis, so each product is one K1 launch over all of them."""
     F = FQ
-    n = tables[0].shape[0] // 2
-    los = [t[:n] for t in tables]
-    his = [t[n:] for t in tables]
+    n = tables[0].shape[-2] // 2
+    los = [t[..., :n, :] for t in tables]
+    his = [t[..., n:, :] for t in tables]
     at2 = [F.sub(F.add(h, h), lo) for lo, h in zip(los, his)]
     if kind == "quad":
         pts = [torch.stack([lo, v2]) for lo, v2 in zip(los, at2)]
         terms = F.mul(pts[0], pts[1])
-    elif kind == "cubic_additive":
+    elif kind in ("cubic", "cubic_additive"):
         at3 = [F.add(v2, F.sub(h, lo)) for v2, lo, h in zip(at2, los, his)]
-        a, b, c, d = (torch.stack(v) for v in zip(los, at2, at3))
-        terms = F.mul(a, F.sub(F.mul(b, c), d))
+        pts = [torch.stack(v) for v in zip(los, at2, at3)]
+        if kind == "cubic":
+            terms = F.mul(F.mul(pts[0], pts[1]), pts[2])
+        else:
+            a, b, c, d = pts
+            terms = F.mul(a, F.sub(F.mul(b, c), d))
     else:
         raise ValueError(f"unknown round kind {kind!r}")
-    return [int(v) for v in F.from_mont(F.sum_reduce(terms, axis=1))]
+    return F.sum_reduce(terms, axis=terms.dim() - 2)
+
+
+def round_evals(kind: str, tables: Sequence[torch.Tensor]) -> List[int]:
+    """``round_sums`` of (2n, 8) tables as host ints."""
+    return [int(v) for v in FQ.from_mont(round_sums(kind, tables))]
 
 
 def round_evals_host(kind: str, tabs: Sequence[List[int]]) -> List[int]:
@@ -129,28 +141,93 @@ def round_evals_host(kind: str, tabs: Sequence[List[int]]) -> List[int]:
         e2 = sum((2 * ah - al) * (2 * bh - bl) % L
                  for al, ah, bl, bh in zip(Al, Ah, Bl, Bh)) % L
         return [e0, e2]
-    if kind != "cubic_additive":
+    if kind == "cubic":
+        comb = lambda v: v[0] * v[1] % L * v[2]              # noqa: E731
+    elif kind == "cubic_additive":
+        comb = lambda v: v[0] * (v[1] * v[2] - v[3]) % L     # noqa: E731
+    else:
         raise ValueError(f"unknown round kind {kind!r}")
+    k = len(tabs)
     e0 = e2 = e3 = 0
     for i in range(n):
-        v0 = [los[j][i] for j in range(4)]
-        e0 += v0[0] * (v0[1] * v0[2] - v0[3]) % L
-        v2 = [2 * his[j][i] - los[j][i] for j in range(4)]
-        e2 += v2[0] * (v2[1] * v2[2] - v2[3]) % L
-        v3 = [v2[j] + his[j][i] - los[j][i] for j in range(4)]
-        e3 += v3[0] * (v3[1] * v3[2] - v3[3]) % L
+        v0 = [los[j][i] for j in range(k)]
+        e0 += comb(v0)
+        v2 = [2 * his[j][i] - los[j][i] for j in range(k)]
+        e2 += comb(v2)
+        v3 = [v2[j] + his[j][i] - los[j][i] for j in range(k)]
+        e3 += comb(v3)
     return [e0 % L, e2 % L, e3 % L]
 
 
 def bind_tables(tables: Sequence[torch.Tensor], r: int) -> List[torch.Tensor]:
-    """Bind the top variable of every (2n, 8) table to r: lo + r (hi - lo),
-    all tables in one K1 launch."""
+    """Bind the top variable of tables (..., 2n, 8) of one shape to r along
+    their second-to-last axis: lo + r (hi - lo), all in one K1 launch."""
     F = FQ
-    n = tables[0].shape[0] // 2
+    n = tables[0].shape[-2] // 2
     T = torch.stack(list(tables))
-    lo, hi = T[:, :n], T[:, n:]
+    lo, hi = T[..., :n, :], T[..., n:, :]
     r_dev = F.to_mont([r], T.device)[0]
     return list(F.add(lo, F.mul(r_dev, F.sub(hi, lo))).unbind(0))
+
+
+# ----------------------------------------------------------------------
+# non-ZK sumcheck (SumcheckInstanceProof)
+# ----------------------------------------------------------------------
+
+@dataclass
+class SumcheckInstanceProof:
+    """The plain sumcheck (reference sumcheck.rs SumcheckInstanceProof):
+    each round's compressed UniPoly in the clear."""
+    compressed_polys: List[List[int]]
+
+    @verify_guard(failure=None)
+    def verify(self, claim: int, num_rounds: int, degree_bound: int,
+               transcript: Transcript) -> Tuple[int, List[int]]:
+        """-> (final claim, challenges), or None when a round fails."""
+        e = claim % L
+        r: List[int] = []
+        if len(self.compressed_polys) != num_rounds:
+            return None
+        for comp in self.compressed_polys:
+            poly = UniPoly.decompress(comp, e)
+            if poly.degree != degree_bound or \
+                    (poly.eval_at_zero() + poly.eval_at_one()) % L != e:
+                return None
+            poly.append_to_transcript(b"poly", transcript)
+            r_i = transcript.challenge_scalar(b"challenge_nextround")
+            r.append(r_i)
+            e = poly.evaluate(r_i)
+        return e, r
+
+    @staticmethod
+    def prove_cubic(claim: int, num_rounds: int, poly_A: DensePoly,
+                    poly_B: DensePoly, poly_C: DensePoly,
+                    transcript: Transcript):
+        """Sumcheck of sum A*B*C; -> (proof, challenges, [A, B, C] at them).
+        The DensePolys are bound in place, all host or all tensor."""
+        e = claim % L
+        r: List[int] = []
+        polys: List[List[int]] = []
+        ps = (poly_A, poly_B, poly_C)
+        for _ in range(num_rounds):
+            if poly_A.is_host:
+                e0, e2, e3 = round_evals_host("cubic", [p.Zh for p in ps])
+            else:
+                e0, e2, e3 = round_evals("cubic", [p.Z for p in ps])
+            poly = UniPoly.from_evals([e0, (e - e0) % L, e2, e3])
+            poly.append_to_transcript(b"poly", transcript)
+            r_j = transcript.challenge_scalar(b"challenge_nextround")
+            r.append(r_j)
+            if poly_A.is_host:
+                for p in ps:
+                    p.bound_poly_var_top(r_j)
+            else:
+                for p, t in zip(ps, bind_tables([p.Z for p in ps], r_j)):
+                    p.Z = t
+            e = poly.evaluate(r_j)
+            polys.append(poly.compress())
+        return (SumcheckInstanceProof(polys), r,
+                [p.index(0) for p in ps])
 
 
 # ----------------------------------------------------------------------

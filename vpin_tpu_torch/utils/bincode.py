@@ -1,8 +1,7 @@
 """bincode-compatible proof serialization (sat proof, sigma proofs, ZK
-sumcheck, CPSnarkProof).
+sumcheck, the SPARK eval proof, CPSnarkProof).
 
-Port of vpin_tpu/utils/bincode.py without the SPARK eval-proof parts, which
-are not ported yet.  The wire format: little-endian u64 length prefixes for
+Port of vpin_tpu/utils/bincode.py.  The wire format: little-endian u64 length prefixes for
 Vec<T>, raw fixed-size arrays, struct fields in declaration order; scalars
 and compressed ristretto points are 32-byte arrays (reference measures proof
 size as bincode::serialize(...).len(), proof_point_add.rs:96-98).
@@ -113,6 +112,10 @@ def ser_polyeval(w: Writer, p) -> None:
     w.point(d.delta).point(d.beta).scalar(d.z1).scalar(d.z2)
 
 
+def ser_poly_commitment(w: Writer, c) -> None:
+    w.vec(c.C, w.point)
+
+
 def ser_zk_sumcheck(w: Writer, sc) -> None:
     w.vec(sc.comm_polys, w.point)
     w.vec(sc.comm_evals, w.point)
@@ -120,7 +123,7 @@ def ser_zk_sumcheck(w: Writer, sc) -> None:
 
 
 def ser_r1cs_sat_proof(w: Writer, p) -> None:
-    w.vec(p.comm_vars.C, w.point)
+    ser_poly_commitment(w, p.comm_vars)
     ser_zk_sumcheck(w, p.sc_proof_phase1)
     for c in p.claims_phase2:          # tuple of 4 compressed points
         w.point(c)
@@ -133,14 +136,62 @@ def ser_r1cs_sat_proof(w: Writer, p) -> None:
     ser_equality(w, p.proof_eq_sc_phase2)
 
 
+def ser_layer_proof_batched(w: Writer, lp) -> None:
+    # the layer's SumcheckInstanceProof: Vec<CompressedUniPoly>
+    w.vec(lp.compressed_polys, lambda coeffs: w.vec(coeffs, w.scalar))
+    w.vec(lp.claims_prod_left, w.scalar)
+    w.vec(lp.claims_prod_right, w.scalar)
+
+
+def ser_prod_circuit_batched(w: Writer, p) -> None:
+    w.vec(p.proof, lambda lp: ser_layer_proof_batched(w, lp))
+    for part in p.claims_dotp:         # tuple of three Vec<Scalar>
+        w.vec(part, w.scalar)
+
+
+def ser_hash_layer(w: Writer, p) -> None:
+    for grp in (p.eval_row, p.eval_col):
+        w.vec(grp[0], w.scalar)
+        w.vec(grp[1], w.scalar)
+        w.scalar(grp[2])
+    w.vec(p.eval_val, w.scalar)
+    w.vec(p.eval_derefs[0], w.scalar)
+    w.vec(p.eval_derefs[1], w.scalar)
+    ser_polyeval(w, p.proof_ops)
+    ser_polyeval(w, p.proof_mem)
+    ser_polyeval(w, p.proof_derefs.proof_derefs)
+
+
+def ser_eval_network(w: Writer, p) -> None:
+    # ProductLayerProof field order: eval_row, eval_col, eval_val,
+    # proof_mem, proof_ops
+    pl = p.proof_prod_layer
+    for grp in (pl.eval_row, pl.eval_col):
+        w.scalar(grp[0])
+        w.vec(grp[1], w.scalar)
+        w.vec(grp[2], w.scalar)
+        w.scalar(grp[3])
+    w.vec(pl.eval_val[0], w.scalar)
+    w.vec(pl.eval_val[1], w.scalar)
+    ser_prod_circuit_batched(w, pl.proof_mem)
+    ser_prod_circuit_batched(w, pl.proof_ops)
+    ser_hash_layer(w, p.proof_hash_layer)
+
+
+def ser_sparse_eval_proof(w: Writer, p) -> None:
+    ser_poly_commitment(w, p.comm_derefs)
+    ser_eval_network(w, p.poly_eval_network_proof)
+
+
 def serialize_snark(proof) -> bytes:
-    """CPSnarkProof -> bincode bytes (sat proof, inst_evals)."""
-    if proof.r1cs_eval_proof is not None:
-        raise NotImplementedError("SPARK eval proof not ported yet")
+    """CPSnarkProof -> bincode bytes (the SNARK struct: sat proof,
+    inst_evals, then the eval proof when there is one)."""
     w = Writer()
     ser_r1cs_sat_proof(w, proof.r1cs_sat_proof)
     for v in proof.inst_evals:
         w.scalar(v)
+    if proof.r1cs_eval_proof is not None:
+        ser_sparse_eval_proof(w, proof.r1cs_eval_proof.proof)
     return w.bytes()
 
 
@@ -190,9 +241,14 @@ def des_zk_sumcheck(r: Reader):
     return ZKSumcheckInstanceProof(comm_polys, comm_evals, proofs)
 
 
+def des_poly_commitment(r: Reader):
+    from ..snark.r1csproof import PolyCommitment
+    return PolyCommitment(r.vec(r.point))
+
+
 def des_r1cs_sat_proof(r: Reader):
-    from ..snark.r1csproof import PolyCommitment, R1CSProof
-    comm_vars = PolyCommitment(r.vec(r.point))
+    from ..snark.r1csproof import R1CSProof
+    comm_vars = des_poly_commitment(r)
     sc1 = des_zk_sumcheck(r)
     claims = tuple(r.point() for _ in range(4))
     pok = (des_knowledge(r), des_product(r))
@@ -205,14 +261,60 @@ def des_r1cs_sat_proof(r: Reader):
                      comm_vars_at_ry, pe, eq2)
 
 
+def des_layer_proof_batched(r: Reader):
+    from ..spark.product_tree import LayerProofBatched
+    polys = r.vec(lambda: r.vec(r.scalar))
+    return LayerProofBatched(polys, r.vec(r.scalar), r.vec(r.scalar))
+
+
+def des_prod_circuit_batched(r: Reader):
+    from ..spark.product_tree import ProductCircuitEvalProofBatched
+    proof = r.vec(lambda: des_layer_proof_batched(r))
+    claims_dotp = tuple(r.vec(r.scalar) for _ in range(3))
+    return ProductCircuitEvalProofBatched(proof, claims_dotp)
+
+
+def des_hash_layer(r: Reader):
+    from ..spark.sparse_mlpoly import DerefsEvalProof, HashLayerProof
+    groups = [(r.vec(r.scalar), r.vec(r.scalar), r.scalar()) for _ in range(2)]
+    eval_val = r.vec(r.scalar)
+    eval_derefs = (r.vec(r.scalar), r.vec(r.scalar))
+    proof_ops = des_polyeval(r)
+    proof_mem = des_polyeval(r)
+    proof_derefs = DerefsEvalProof(des_polyeval(r))
+    return HashLayerProof(groups[0], groups[1], eval_val, eval_derefs,
+                          proof_ops, proof_mem, proof_derefs)
+
+
+def des_eval_network(r: Reader):
+    from ..spark.sparse_mlpoly import PolyEvalNetworkProof, ProductLayerProof
+    groups = [(r.scalar(), r.vec(r.scalar), r.vec(r.scalar), r.scalar())
+              for _ in range(2)]
+    eval_val = (r.vec(r.scalar), r.vec(r.scalar))
+    proof_mem = des_prod_circuit_batched(r)
+    proof_ops = des_prod_circuit_batched(r)
+    pl = ProductLayerProof(groups[0], groups[1], eval_val, proof_mem,
+                           proof_ops)
+    return PolyEvalNetworkProof(pl, des_hash_layer(r))
+
+
+def des_sparse_eval_proof(r: Reader):
+    from ..spark.sparse_mlpoly import R1CSEvalProof, SparseMatPolyEvalProof
+    comm_derefs = des_poly_commitment(r)
+    return R1CSEvalProof(SparseMatPolyEvalProof(comm_derefs,
+                                                des_eval_network(r)))
+
+
 def deserialize_snark(data: bytes):
-    """bincode bytes -> CPSnarkProof.  Trailing bytes would be a SPARK eval
-    proof, which is not ported yet: they raise."""
+    """bincode bytes -> CPSnarkProof, with or without the eval proof (the
+    bytes after inst_evals); trailing bytes after it raise."""
     from ..snark.cp_snark import CPSnarkProof
     r = Reader(data)
     sat = des_r1cs_sat_proof(r)
     evals = tuple(r.scalar() for _ in range(3))
+    eval_proof = None
     if r.off != len(data):
-        raise ValueError("trailing bytes: the SPARK eval proof is not "
-                         "ported yet")
-    return CPSnarkProof(sat, evals)
+        eval_proof = des_sparse_eval_proof(r)
+        if r.off != len(data):
+            raise ValueError("trailing bytes after the eval proof")
+    return CPSnarkProof(sat, evals, eval_proof)

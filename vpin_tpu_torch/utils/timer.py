@@ -1,8 +1,9 @@
 """Nested span timer (reference Spartan/src/timer.rs under its `profile`
 feature), port of vpin_tpu/utils/timer.py with the same labels.  Prints only
 when VPIN_PROFILE is set; a caller that sets RECORD to a list gets every
-span appended to it as it stops.  Spans are host time: the device work
-they enqueue is inside them only up to the next synchronizing read."""
+span appended to it as it stops, with the kernel launches made inside it.
+Spans are host time: the device work they enqueue is inside them only up to
+the next synchronizing read."""
 
 from __future__ import annotations
 
@@ -10,10 +11,13 @@ import os
 import time
 from contextlib import contextmanager
 
+from .. import kernels
+
 _ENABLED = os.environ.get("VPIN_PROFILE", "0") not in ("0", "", "false")
 _DEPTH = 0
 
-#: when a list, each span appends (depth, label, seconds) as it stops
+#: when a list, each span appends (depth, label, seconds, {kernel: launches})
+#: as it stops
 RECORD = None
 
 
@@ -23,6 +27,7 @@ class Timer:
         self.label = label
         self.t0 = time.perf_counter()
         self.depth = _DEPTH
+        self.launches = dict(kernels.LAUNCHES) if RECORD is not None else None
         if _ENABLED:
             print(f"{'*' * (self.depth + 1)} {label}")
         _DEPTH += 1
@@ -33,8 +38,10 @@ class Timer:
         dt = time.perf_counter() - self.t0
         if _ENABLED:
             print(f"{'*' * (self.depth + 1)} {self.label} {dt * 1000:.3f}ms")
-        if RECORD is not None:
-            RECORD.append((self.depth, self.label, dt))
+        if RECORD is not None and self.launches is not None:
+            RECORD.append((self.depth, self.label, dt, {
+                k: v - self.launches.get(k, 0)
+                for k, v in kernels.LAUNCHES.items()}))
         return dt
 
 
