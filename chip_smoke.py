@@ -1,20 +1,27 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (vpin_tpu_torch) on one GPU and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # every phase; ends in {"ok": true, ...}
+    python3 chip_smoke.py --kernels    # phases 1-3 only, no result line
 
 Phases:
   1. the card's name and power limit (nvidia-smi);
-  2. build the five CUDA kernels from vpin_tpu_torch/csrc, all at once, and
-     print their registers and spills;
-  3. hold each kernel bit for bit against its plain PyTorch version on the
-     card, at the main path's shapes plus edge and special cases (K4 up to
-     the 1,024 x 2,048 pairs of the SPARK comb_ops fold), and time both
-     (CUDA events, after warm-up).  K5, the ristretto ladder, is off the
-     main path: its own path (RistrettoGroup.msm_bits at tests/test_msm.py's
-     8 x 253 bits and at 4,096 x 253) runs here with the launch counts set
-     to 0 before it, and its sums must equal the K4 table MSM and, at 8
-     points, host_ristretto;
+  2. build the five CUDA kernel sources from vpin_tpu_torch/csrc, all at
+     once, and print each kernel's registers and spills;
+  3. hold each kernel entry bit for bit against its plain PyTorch version on
+     the card, at the main path's shapes plus edge and special cases, and
+     time both (CUDA events, after warm-up): K1's mont_mul at 2^16 and at the
+     2^21 comb_ops leaves, and its mont_pow at the witness scan's 18
+     inverses, at 2^16 elements by l - 2 and by (p - 5) / 8; K4's ed_add up
+     to the 1,024 x 2,048 pairs of the SPARK comb_ops fold, its ed_table at
+     2,048, 2,049 and 4,096 columns and its ed_msm at the bullet prover's
+     1 x 2,048, the comb_ops commitment's 1,024 x 2,049 through a 4,096-wide
+     table, an odd n and all-zero digits (its sums also equal to the
+     elementwise fold and host_ristretto as encodings).  K5, the ristretto
+     ladder, is off the main path: its own path (RistrettoGroup.msm_bits at
+     tests/test_msm.py's 8 x 253 bits and at 4,096 x 253) runs here with the
+     launch counts set to 0 before it, and its sums must equal the K4 table
+     MSM and, at 8 points, host_ristretto;
   4. replay the four golden fixtures of crosscheck/gen_golden.py (2 adds,
      2 mults; transparent and with the SPARK eval proof) with the witness
      and every table on the CUDA route (every crossover lowered to 0): both
@@ -29,7 +36,9 @@ Phases:
      (curve/host_ec.py); the proofs must verify and have the sizes their
      instances' shapes give, and K1 and K4 must run inside the mult proof's
      SPARK spans (SNARK::encode, R1CSEvalProof::prove);
-  6. each kernel's launch count on the main path (K5's on its own path).
+  6. each entry's launch count on the main path, mont_pow and ed_msm among
+     them (K5's and the elementwise K4 addition's on their own path,
+     msm_bits, in phase 3).
 The line before the last is a JSON object with every kernel's numbers; the
 last is {"ok": true, "device": {...}}.  Any failure raises: the script then
 exits non-zero without that line.  Without a GPU it exits 1 at once.
@@ -59,6 +68,10 @@ MUL32_PER_MONT = 2 * 64 + 2 * 64 + 8
 MUL32_PER_MONT_P = 2 * 64 + 8 + 2 * 8
 MONT_PER_E2_ADD = 17
 MONT_PER_ED_ADD = 9
+# entries the main path does not launch: K5's ladder, and K4's elementwise
+# addition (RistrettoGroup.add and sum_points; the MSMs take ed_table and
+# ed_msm).  Both run on RistrettoGroup.msm_bits, driven in phase 3.
+OWN_PATH = ("ed_ladder", "ed_add")
 # K5's shapes: tests/test_msm.py's ladder MSM, and a batch that fills part
 # of the card
 LADDER_SHAPES = ((8, 253), (4096, 253))
@@ -66,6 +79,15 @@ LADDER_SHAPES = ((8, 253), (4096, 253))
 # commitment of the 18-mult proof (2^21 entries in 1,024 Hyrax rows, summed
 # through a digit table 4,096 wide), 1,024 rows x 2,048 pairs
 FOLD_SHAPE = (1024, 2048)
+# K1's largest batches: the 2^21 comb_ops leaves of the SPARK; mont_pow's
+# batches: the witness scan's 18 inverses and 2^16 elements
+MONT_LARGE = 1 << 21
+POW_SHAPES = (18, 1 << 16)
+# K4's MSM shapes: the bullet prover's table MSM (1 row x 2,048 points) and
+# the comb_ops commitment (1,024 Hyrax rows x 2,049 points) through a table
+# 4,096 wide, as the reference pads it
+BULLET_N = 2048
+COMB_ROWS, COMB_N, COMB_WIDTH = 1024, 2049, 4096
 FILTER = 3
 SIZE = 32
 REQUESTS = 4
@@ -181,6 +203,16 @@ def eval_proof_bytes(num_cons: int, num_vars: int, nnz: int,
     return vec(1 << (derefs_vars // 2)) + product_layer + hash_layer
 
 
+def k1_launches(launched: dict) -> int:
+    """Launches of K1's entries (the Montgomery product and power)."""
+    return sum(launched.get(k, 0) for k in ("mont_mul", "mont_pow"))
+
+
+def k4_launches(launched: dict) -> int:
+    """Launches of K4's entries (the addition, digit table and MSM)."""
+    return sum(launched.get(k, 0) for k in ("ed_add", "ed_table", "ed_msm"))
+
+
 def max_abs_err(torch, got, want) -> int:
     return max(int((g.long() - w.long()).abs().max().item()) if g.numel() else 0
                for g, w in zip(got, want))
@@ -237,7 +269,69 @@ def check_mont_mul(torch, dev, rate):
             f"({by})")
         rows[F.name] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
                             max_abs_err=max_abs_err(torch, [got], [want]))
-    return rows["Fl"]
+    # the SPARK's large batches: the comb_ops leaves
+    n = MONT_LARGE
+    a = field_operands(torch, FQ, n, 3, dev)
+    b = torch.flip(field_operands(torch, FQ, n, 13, dev), [0]).contiguous()
+    got = mont_mul(a, b, FQ)
+    want = mont_mul_plain(a, b, FQ)
+    torch.cuda.synchronize()
+    require(torch.equal(got, want), f"mont_mul Fl n={n}: kernel != plain")
+    err = max([max_abs_err(torch, [got], [want])]
+              + [r["max_abs_err"] for r in rows.values()])
+    del got, want
+    ms = kernel_ms(torch, lambda: mont_mul(a, b, FQ), launches=100)
+    plain = wall_ms(torch, lambda: mont_mul_plain(a, b, FQ), repeats=1)
+    bnd, by = bound_ms(MUL32_PER_MONT * n, 96 * n, rate)
+    log(f"K1 mont_mul Fl n={n} (the comb_ops leaves): bit-equal to plain; "
+        f"kernel {ms:.4f} ms, plain {plain:.3f} ms, bound {bnd:.4f} ms ({by})")
+    return dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                max_abs_err=err)
+
+
+def check_mont_pow(torch, dev, rate):
+    """K1's mont_pow at the witness scan's inverses (18 elements by l - 2),
+    at 2^16 elements by l - 2, and at ristretto255's square-root exponent
+    (p - 5) / 8; edge values lead every batch.  Returns the 2^16 row."""
+    from vpin_tpu_torch.curve.ristretto import RISTRETTO as R
+    from vpin_tpu_torch.field import FP, FQ
+    from vpin_tpu_torch.field.cuda_mont import mont_pow, mont_pow_plain
+    from vpin_tpu_torch.field.limbs import limbs_to_ints, to_numpy
+    small, large = POW_SHAPES
+    cases = [(FQ, FQ._inv_exp_bits, small,
+              "l - 2, the witness scan's inverses"),
+             (FQ, FQ._inv_exp_bits, large, "l - 2"),
+             (FP, R._sqrt_exp_bits, large, "(p - 5) / 8")]
+    out, err = None, 0
+    for seed, (F, bits, n, label) in enumerate(cases, 40):
+        a = field_operands(torch, F, max(n, 64), seed, dev)[:n].contiguous()
+        got = mont_pow(a, bits, F)
+        want = mont_pow_plain(a, bits, F)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want), f"mont_pow {label}: kernel != plain")
+        err = max(err, max_abs_err(torch, [got], [want]))
+        # exact on the host: Montgomery residues x R -> x^e R
+        N, R_ = F.modulus, (1 << 256) % F.modulus
+        e = int("".join(map(str, bits)), 2)
+        xs = limbs_to_ints(to_numpy(a[:18]))
+        gs = limbs_to_ints(to_numpy(got[:18]))
+        Rinv = pow(R_, -1, N)
+        require(all(int(g) == pow(int(x) * Rinv % N, e, N) * R_ % N
+                    for g, x in zip(gs, xs)),
+                f"mont_pow {label}: kernel != exact host power")
+        ms = kernel_ms(torch, lambda: mont_pow(a, bits, F), launches=5,
+                       repeats=3)
+        plain = wall_ms(torch, lambda: mont_pow_plain(a, bits, F))
+        products = len(bits) + sum(bits)
+        per = MUL32_PER_MONT_P if F is FP else MUL32_PER_MONT
+        bnd, by = bound_ms(per * products * n, 64 * n, rate)
+        log(f"K1 mont_pow {F.name} n={n} by {label} ({products} products "
+            f"each): bit-equal to plain and the host; kernel {ms:.4f} ms, "
+            f"plain {plain:.3f} ms, bound {bnd:.4f} ms ({by})")
+        if n == large and F is FQ:
+            out = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by)
+    out["max_abs_err"] = err
+    return out
 
 
 def random_points(torch, dev, n: int, seed: int):
@@ -462,10 +556,138 @@ def fold_points(torch, dev, pairs, shape):
     return tuple(out)
 
 
+def fold_msm(torch, R, table, digits):
+    """The table MSM as the port summed it before ed_msm: per window a
+    gather over the table's whole width (zero digits past n pick the
+    identity row), a halving sum_points (one elementwise K4 launch per
+    level), then Horner with R.add."""
+    from vpin_tpu_torch.curve.ristretto import take
+    rows, n, _ = digits.shape
+    width = table.batch_shape[1]
+    d = torch.nn.functional.pad(digits.long(), (0, 0, 0, width - n))
+    col = torch.arange(width, device=digits.device)
+    Qw = [R.sum_points(take(table, (d[..., w], col)), axis=1)
+          for w in range(32)]
+    acc = R.identity((rows,), digits.device)
+    for q in reversed(Qw):
+        for _ in range(8):
+            acc = R.add(acc, acc)
+        acc = R.add(acc, q)
+    return acc
+
+
+def msm_bound(torch, digits, rate):
+    """ed_msm's bound on these digits (rows, n, 32): rows x (32 (n - 1) +
+    288) additions; the bytes are the table entries the digits select (each
+    distinct (digit, column) pair once: one row of digits reaches at most 32
+    of a column's 256), the digits and the sums, each moved once."""
+    rows, n, _ = digits.shape
+    adds = rows * (32 * max(n - 1, 0) + 288)
+    col = torch.arange(n, device=digits.device).view(1, n, 1)
+    used = torch.zeros(256 * n, dtype=torch.bool, device=digits.device)
+    used[(digits.long() * n + col).flatten()] = True
+    entries = int(used.sum())
+    return bound_ms(adds * MONT_PER_ED_ADD * MUL32_PER_MONT_P,
+                    entries * 128 + rows * n * 32 + rows * 128, rate)
+
+
+def check_ed_msm(torch, dev, rate):
+    """K4's ed_table and ed_msm against their plain versions: the bullet
+    prover's shape (1 row x 2,048 points), the comb_ops commitment's
+    (1,024 rows x 2,049 points through a 4,096-wide table, as the reference
+    pads it), an odd n and all-zero digits; ed_msm's sums also against the
+    elementwise fold and, where the host can keep up, host_ristretto, as
+    encodings.  Returns (ed_table row, ed_msm row)."""
+    from vpin_tpu_torch.curve import cuda_edwards as CE
+    from vpin_tpu_torch.curve import host_ristretto as H
+    from vpin_tpu_torch.curve.msm import host_digits
+    from vpin_tpu_torch.curve.ristretto import RISTRETTO as R, PointE, cat_points
+    from vpin_tpu_torch.field.prime_field import L_MODULUS
+    n_real, wide, nb = COMB_N, COMB_WIDTH, BULLET_N
+    P, _ = edwards_points(torch, dev, max(n_real, nb), 50)
+    P = PointE(*(c[:n_real] for c in P))
+    hp = [H.decode(e) for e in R.encode_bytes(P)]
+    padded = cat_points([P, R.identity((wide - n_real,), dev)])
+    tables, err, msm_err = {}, 0, 0
+    for label, base in ((f"{nb} (bullet)", PointE(*(c[:nb] for c in P))),
+                        (f"{n_real} (comb_ops gens)", P),
+                        (f"{wide} ({n_real} padded)", padded)):
+        got = CE.ed_table(R, tuple(base))
+        t = time.perf_counter()
+        want = CE.ed_table_plain(R, tuple(base))
+        torch.cuda.synchronize()
+        plain = (time.perf_counter() - t) * 1e3
+        require(all(torch.equal(g, w) for g, w in zip(got, want)),
+                f"ed_table {label}: kernel != plain")
+        err = max(err, max_abs_err(torch, got, want))
+        del want
+        m = base.batch_shape[0]
+        ms = kernel_ms(torch, lambda: CE.ed_table(R, tuple(base)),
+                       launches=3, repeats=3)
+        bnd, by = bound_ms(255 * m * MONT_PER_ED_ADD * MUL32_PER_MONT_P,
+                           128 * m + 256 * 128 * m, rate)
+        log(f"K4 ed_table {label}: bit-equal to plain; kernel {ms:.4f} ms, "
+            f"plain {plain:.1f} ms, bound {bnd:.4f} ms ({by})")
+        tables[m] = (PointE(*got), dict(ms=ms, plain_ms=plain, bound_ms=bnd,
+                                        bound_by=by))
+    table_row = tables[n_real][1]
+    table_row["max_abs_err"] = err
+
+    rng = random.Random(51)
+    scalars = [rng.randrange(L_MODULUS) for _ in range(nb)]
+    scalars[:3] = [0, 1, L_MODULUS - 1]
+    rs = np.random.RandomState(51)
+    cases = [(f"bullet 1 x {nb}", tables[nb][0], host_digits(scalars)[None],
+              True),
+             ("odd 3 x 37", tables[nb][0],
+              rs.randint(0, 256, size=(3, 37, 32)).astype(np.uint8), True),
+             (f"zero digits 2 x {nb}", tables[nb][0],
+              np.zeros((2, nb, 32), dtype=np.uint8), True),
+             (f"comb_ops {COMB_ROWS} x {n_real}", tables[wide][0],
+              rs.randint(0, 256, size=(COMB_ROWS, n_real, 32)).astype(
+                  np.uint8), False)]
+    msm_row = None
+    for label, table, dig_np, host_all in cases:
+        digits = torch.as_tensor(dig_np, device=dev)
+        rows, n, _ = digits.shape
+        got = CE.ed_msm(R, tuple(table), digits)
+        t = time.perf_counter()
+        want = CE.ed_msm_plain(R, tuple(table), digits)
+        torch.cuda.synchronize()
+        plain = (time.perf_counter() - t) * 1e3
+        require(all(torch.equal(g, w) for g, w in zip(got, want)),
+                f"ed_msm {label}: kernel != plain")
+        msm_err = max(msm_err, max_abs_err(torch, got, want))
+        del want
+        enc = R.encode_bytes(PointE(*got))
+        require(enc == R.encode_bytes(fold_msm(torch, R, table, digits)),
+                f"ed_msm {label}: != the elementwise fold")
+        for r in range(rows if host_all else 1):
+            ks = [int.from_bytes(bytes(dig_np[r, i]), "little")
+                  for i in range(n)]
+            require(enc[r] == H.msm(ks, hp[:n]).encode(),
+                    f"ed_msm {label} row {r}: != host_ristretto")
+        if label.startswith("zero"):
+            require(all(e == bytes(32) for e in enc),
+                    "ed_msm of zero digits is not the identity")
+        ms = kernel_ms(torch, lambda: CE.ed_msm(R, tuple(table), digits),
+                       launches=3, repeats=3)
+        bnd, by = msm_bound(torch, digits, rate)
+        log(f"K4 ed_msm {label} (table {table.batch_shape[1]} wide): "
+            f"bit-equal to plain, equal to the elementwise fold and "
+            f"host_ristretto; kernel {ms:.4f} ms, plain {plain:.1f} ms, bound "
+            f"{bnd:.4f} ms ({by})")
+        if label.startswith("comb_ops"):
+            msm_row = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by)
+    msm_row["max_abs_err"] = msm_err
+    return table_row, msm_row
+
+
 def check_ed_ladder(torch, dev, rate):
-    """K5: its path (msm_bits) with the counts from 0, the sums against the
-    K4 table MSM and host_ristretto, then the kernel against its plain
-    version at each shape.  Returns ({n: row}, launches on its path)."""
+    """K5: its path (msm_bits: the ladders, then sum_points' elementwise K4
+    additions) with the counts from 0, the sums against the K4 table MSM and
+    host_ristretto, then the kernel against its plain version at each shape.
+    Returns ({n: row}, {entry: launches on that path})."""
     from vpin_tpu_torch import kernels
     from vpin_tpu_torch.curve import cuda_edwards, host_ristretto as H
     from vpin_tpu_torch.curve.msm import host_digits, msm_oneshot
@@ -491,8 +713,9 @@ def check_ed_ladder(torch, dev, rate):
         kernels.LAUNCHES[name] = 0
     sums = [R.msm_bits(P, rows) for _, _, P, rows, _ in cases]
     torch.cuda.synchronize()
-    launches = kernels.LAUNCHES["ed_ladder"]
-    require(launches == len(cases), f"K5 path: {launches} ed_ladder launches")
+    launches = dict(kernels.LAUNCHES)
+    require(launches["ed_ladder"] == len(cases),
+            f"K5 path: {launches['ed_ladder']} ed_ladder launches")
 
     out = {}
     for (n, n_bits, P, rows, ks), total in zip(cases, sums):
@@ -630,7 +853,8 @@ def replay_golden(torch, dev):
                 blob = serialize_snark(proof)
                 require(blob.hex() == golden["proof_hex"],
                         f"golden {fname}: proof bytes differ")
-                require(launched["ed_add"] > 0 and launched["mont_mul"] > 0,
+                require(k4_launches(launched) > 0
+                        and k1_launches(launched) > 0,
                         f"golden {fname}: K4/K1 not launched: {launched}")
                 log(f"golden {fname}: {len(plog)} prover / {len(vlog)} "
                     f"verifier challenges and {len(blob)} proof bytes equal "
@@ -748,7 +972,7 @@ def prove_request(torch, dev, fin):
         require(st_mult.size_bytes == want_mult,
                 f"{mode} mult proof is {st_mult.size_bytes} B, want "
                 f"{want_mult}")
-        require(mult_l["ed_add"] > 0,
+        require(k4_launches(mult_l) > 0,
                 f"K4 not launched in the {mode} mult proof: {mult_l}")
         spans = {}
         for _, label, dt, launched in record:
@@ -758,8 +982,8 @@ def prove_request(torch, dev, fin):
         if full:
             for label in ("SNARK::encode", "R1CSEvalProof::prove"):
                 ms, launched = spans.get(label, (0.0, {}))
-                require(launched.get("mont_mul", 0) > 0
-                        and launched.get("ed_add", 0) > 0,
+                require(k1_launches(launched) > 0
+                        and k4_launches(launched) > 0,
                         f"{label}: K1 and K4 not both launched: {launched}")
         log(f"{mode} proof: add {st_add.size_bytes} B, mult "
             f"{st_mult.size_bytes} B, both verified; prove_add_ms "
@@ -796,6 +1020,7 @@ def check_request(torch, res, fin, req: int) -> None:
 
 def main() -> int:
     import torch
+    kernels_only = "--kernels" in sys.argv[1:]
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -816,27 +1041,33 @@ def main() -> int:
     # -- phase 2 --
     t = time.perf_counter()
     logs = kernels.build()
-    log(f"build: {time.perf_counter() - t:.1f} s for {len(logs)} kernels")
+    log(f"build: {time.perf_counter() - t:.1f} s for {len(logs)} kernel "
+        f"sources")
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"  {name}: {line.strip()}")
 
     # -- phase 3 --
-    k1 = check_mont_mul(torch, dev, mul32_rate)
-    k2, P = check_e2_add(torch, dev, mul32_rate)
-    k4 = check_ed_add(torch, dev, mul32_rate)
+    rows = {"mont_mul": check_mont_mul(torch, dev, mul32_rate),
+            "mont_pow": check_mont_pow(torch, dev, mul32_rate)}
+    rows["e2_add"], P = check_e2_add(torch, dev, mul32_rate)
+    rows["ed_add"] = check_ed_add(torch, dev, mul32_rate)
+    rows["ed_table"], rows["ed_msm"] = check_ed_msm(torch, dev, mul32_rate)
     M = SIZE * SIZE
     f2 = FILTER * FILTER
-    k3 = check_ladder(torch, dev, mul32_rate, P, M * f2, 128, f2, M,
-                      "rho over windows")
+    rows["e2_scalar_mul"] = check_ladder(torch, dev, mul32_rate, P, M * f2,
+                                         128, f2, M, "rho over windows")
     check_ladder(torch, dev, mul32_rate, P, M, 128, 1, M, "rho over outputs")
     check_ladder(torch, dev, mul32_rate, P, M * f2, 2, 1, f2,
                  "filter weights", plain_repeats=3)
-    k5_rows, k5_launches = check_ed_ladder(torch, dev, mul32_rate)
-    k5 = k5_rows[LADDER_SHAPES[-1][0]]
+    k5_rows, own_path = check_ed_ladder(torch, dev, mul32_rate)
+    rows["ed_ladder"] = k5_rows[LADDER_SHAPES[-1][0]]
     log("host work: " + ", ".join(f"{k} {v:.2f} ms"
                                   for k, v in host_work_ms().items()))
+    if kernels_only:
+        log("--kernels: stopping after phase 3")
+        return 0
 
     # -- phase 4 --
     replay_golden(torch, dev)
@@ -850,6 +1081,10 @@ def main() -> int:
     launches = dict(kernels.LAUNCHES)
     log(f"launches over {REQUESTS} requests: {conv_launches}; over them and "
         f"one request's proof: {launches}")
+    log(f"main path: K1 {k1_launches(launches)} launches (mont_mul "
+        f"{launches['mont_mul']}, mont_pow {launches['mont_pow']}), K4 "
+        f"{k4_launches(launches)} (ed_add {launches['ed_add']}, ed_table "
+        f"{launches['ed_table']}, ed_msm {launches['ed_msm']})")
     for req, (res, fin, _) in enumerate(results):
         check_request(torch, res, fin, req)
         log(f"request {req}: rLC ok, 18 mults / 16 adds, trace and 8 output "
@@ -858,24 +1093,31 @@ def main() -> int:
     log(f"warm request median {statistics.median(warm):.1f} ms on {card}")
 
     # -- phase 6 --
-    launches["ed_ladder"] = k5_launches        # K5's own path (phase 3)
+    # K5 and the elementwise K4 addition lie off the main path; their counts
+    # are those of their own path, msm_bits (phase 3)
+    log(f"off the main path: {OWN_PATH} launched {[launches[k] for k in OWN_PATH]}"
+        f" times on it and {[own_path[k] for k in OWN_PATH]} on msm_bits")
+    launches.update({k: own_path[k] for k in OWN_PATH})
     require(all(v > 0 for v in launches.values()),
-            f"a kernel was not launched on its path: {launches}")
-    spec = [("mont_mul", "mont_mul.cu", "vpin_tpu/field/pallas_mont.py:97", k1),
-            ("e2_add", "e2_add.cu", "vpin_tpu/curve/pallas_ec.py:119", k2),
+            f"an entry was not launched on its path: {launches}")
+    spec = [("mont_mul", "mont_mul.cu", "vpin_tpu/field/pallas_mont.py:97"),
+            ("mont_pow", "mont_mul.cu", "vpin_tpu/field/pallas_mont.py:97"),
+            ("e2_add", "e2_add.cu", "vpin_tpu/curve/pallas_ec.py:119"),
             ("e2_scalar_mul", "e2_scalar_mul.cu",
-             "vpin_tpu/curve/pallas_ec.py:135", k3),
-            ("ed_add", "ed_add.cu", "vpin_tpu/curve/pallas_edwards.py:58", k4),
+             "vpin_tpu/curve/pallas_ec.py:135"),
+            ("ed_add", "ed_add.cu", "vpin_tpu/curve/pallas_edwards.py:58"),
+            ("ed_table", "ed_add.cu", "vpin_tpu/curve/pallas_edwards.py:58"),
+            ("ed_msm", "ed_add.cu", "vpin_tpu/curve/pallas_edwards.py:58"),
             ("ed_ladder", "ed_ladder.cu",
-             "vpin_tpu/curve/pallas_edwards.py:73", k5)]
+             "vpin_tpu/curve/pallas_edwards.py:73")]
     line = {"kernels": [
         {"name": name, "route": "cuda",
          "source": f"vpin_tpu_torch/csrc/{src}", "replaces": replaces,
-         "launches": launches[name], "max_abs_err": row["max_abs_err"],
-         "ms": row["ms"], "plain_ms": row["plain_ms"],
-         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-         "library_ms": None}
-        for name, src, replaces, row in spec]}
+         "launches": launches[name], "max_abs_err": rows[name]["max_abs_err"],
+         "ms": rows[name]["ms"], "plain_ms": rows[name]["plain_ms"],
+         "bound_ms": rows[name]["bound_ms"],
+         "bound_by": rows[name]["bound_by"], "library_ms": None}
+        for name, src, replaces in spec]}
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

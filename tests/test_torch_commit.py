@@ -121,8 +121,8 @@ def test_fixed_base_msm_equals_vpin_tpu():
     enc = R.encode_bytes(got)
     assert enc == JR.encode_bytes(want)
     assert enc == [H.msm(row, pts).encode() for row in scalars]
-    # 50 points in a 64-wide table: msm_digits pads the digits
-    table = FixedBaseMSM(R, pointe_from_host(pts[:50], "cpu")).table
+    # 50 digit columns through a 64-wide table: msm_digits sums the first 50
+    table = FixedBaseMSM(R, pointe_from_host(pts, "cpu")).table
     one = msm_digits(R, table, torch.as_tensor(host_digits(scalars[1][:50])))
     assert R.encode_bytes(PointE(*(c[None] for c in one)))[0] == \
         H.msm(scalars[1][:50], pts[:50]).encode()

@@ -12,11 +12,15 @@ import numpy as np
 import pytest
 import torch
 
+from vpin_tpu.curve.ristretto import RISTRETTO as JR
 from vpin_tpu.field import FP as JFP, FQ as JFQ
 from vpin_tpu_torch import convert, kernels
+from vpin_tpu_torch.curve.ristretto import RISTRETTO as R
 from vpin_tpu_torch.device import resolve_device
 from vpin_tpu_torch.field import FP, FQ
-from vpin_tpu_torch.field.cuda_mont import mont_mul, mont_mul_plain
+from vpin_tpu_torch.field.cuda_mont import (
+    mont_mul, mont_mul_plain, mont_pow, mont_pow_plain,
+)
 from vpin_tpu_torch.field.limbs import (
     ints_to_limbs, limbs_to_ints, to_numpy, to_tensor,
 )
@@ -106,6 +110,49 @@ def test_inv_matches_jax(F, J):
     assert_bit_equal(got, jax.jit(J.inv)(a))
     assert [int(v) for v in F.from_mont(got)] == [
         pow(x, F.modulus - 2, F.modulus) for x in xs]
+
+
+#: mont_pow's exponents on the main path: Fermat inversion in both fields
+#: and ristretto255's square root (p - 5) / 8
+POW_CASES = [(FQ, JFQ, FQ._inv_exp_bits, JFQ._inv_exp_bits),
+             (FP, JFP, FP._inv_exp_bits, JFP._inv_exp_bits),
+             (FP, JFP, R._sqrt_exp_bits, JR._sqrt_exp_bits)]
+
+
+@pytest.mark.parametrize("F,J,bits,jbits", POW_CASES,
+                         ids=["Fl-inv", "Fp-inv", "Fp-sqrt"])
+def test_mont_pow_plain_matches_jax_pow_bits(F, J, bits, jbits):
+    """The plain mont_pow against vpin_tpu's pow_bits scan, on 0, 1, N - 1,
+    the other edges and random values."""
+    assert bits == jbits
+    xs = operands(F.modulus, 20, 7)
+    a = J.to_mont(xs)
+    got = mont_pow_plain(port(a), bits, F)
+    assert_bit_equal(got, jax.jit(lambda v: J.pow_bits(v, jbits))(a))
+    e = int("".join(map(str, bits)), 2)
+    assert [int(v) for v in F.from_mont(got)] == [
+        pow(x, e, F.modulus) for x in xs]
+
+
+def test_mont_pow_routes_and_edges():
+    """pow_bits and inv take mont_pow, whose CPU route is the plain version;
+    leading zero bits and the empty exponent give the same as the shorter
+    exponent and 1; exponents over 256 bits are refused."""
+    a = FQ.to_mont([0, 1, 5, FQ.modulus - 1], "cpu")
+    bits = (1, 0, 1, 1)
+    before = dict(kernels.LAUNCHES)
+    assert torch.equal(FQ.pow_bits(a, bits), mont_pow_plain(a, bits, FQ))
+    assert torch.equal(mont_pow(a, (0, 0) + bits, FQ),
+                       mont_pow_plain(a, bits, FQ))
+    assert torch.equal(FQ.inv(a), mont_pow(a, FQ._inv_exp_bits, FQ))
+    assert torch.equal(mont_pow(a, (), FQ), FQ.ones((4,), "cpu"))
+    assert kernels.LAUNCHES == before
+    assert [int(v) for v in FQ.from_mont(FQ.inv(a))] == [
+        0, 1, pow(5, -1, FQ.modulus), FQ.modulus - 1]
+    with pytest.raises(ValueError):
+        mont_pow(a, (1,) * 257, FQ)
+    with pytest.raises(ValueError):
+        mont_pow(a, (2,), FQ)
 
 
 @pytest.mark.parametrize("F,J", FIELDS, ids=IDS)

@@ -40,13 +40,7 @@ __global__ void __launch_bounds__(128) ed_ladder_kernel(
 
   EdPt base, acc, sum;
   ed_load(base, px, py, pz, pt, i);
-#pragma unroll
-  for (int j = 0; j < VPIN_NL; ++j) {
-    acc.x[j] = 0u;
-    acc.y[j] = ec.f.one[j];
-    acc.z[j] = ec.f.one[j];
-    acc.t[j] = 0u;
-  }
+  ed_identity(acc, ec);
 
   uint32_t word = 0;
   for (int k = 0; k < n_bits; ++k) {

@@ -1,8 +1,11 @@
-"""K1: batched Montgomery multiplication, a * b * 2^-256 mod N.
+"""K1: batched Montgomery multiplication, a * b * 2^-256 mod N, and the
+batched power a^e for one public exponent.
 
-Port of vpin_tpu/field/pallas_mont.py (``mont_mul_pallas``).  The CUDA kernel
-is csrc/mont_mul.cu; ``mont_mul_plain`` is the same function in plain
-PyTorch, the kernel's yardstick on the card and what a CPU tensor runs.
+Port of vpin_tpu/field/pallas_mont.py (``mont_mul_pallas``) and of the
+``lax.scan`` of it in vpin_tpu's ``PrimeField.pow_bits``.  The CUDA kernels
+are csrc/mont_mul.cu (entries ``mont_mul`` and ``mont_pow``);
+``mont_mul_plain`` and ``mont_pow_plain`` are the same functions in plain
+PyTorch, the kernels' yardsticks on the card and what a CPU tensor runs.
 """
 
 from __future__ import annotations
@@ -29,6 +32,39 @@ def mont_mul(a: torch.Tensor, b: torch.Tensor, field) -> torch.Tensor:
         kernels.launch("mont_mul", dev, a.data_ptr(), b.data_ptr(),
                        out.data_ptr(), n, field.kernel_consts)
     return out
+
+
+def mont_pow(a: torch.Tensor, bits, field) -> torch.Tensor:
+    """a^e in Montgomery form for canonical int32 limbs (..., 8), where
+    ``bits`` is the exponent MSB first (at most 256 bits).  CPU tensors take
+    the plain version; CUDA tensors launch the kernel once."""
+    dev = kernels.check_limbs("mont_pow", a)
+    bits = tuple(int(b) for b in bits)
+    if len(bits) > 256 or any(b not in (0, 1) for b in bits):
+        raise ValueError("mont_pow: the exponent must be at most 256 bits")
+    if dev.type == "cpu":
+        return mont_pow_plain(a, bits, field)
+    a = kernels.kernel_operand(a, a.shape)
+    out = torch.empty_like(a)
+    n = out.numel() // N_LIMBS
+    if n:
+        e = int("".join(map(str, bits)) or "0", 2)
+        words = kernels.consts_array([(e >> (32 * j)) & 0xFFFFFFFF
+                                      for j in range(N_LIMBS)])
+        kernels.launch("mont_pow", dev, a.data_ptr(), out.data_ptr(), n,
+                       field.kernel_consts, words, len(bits))
+    return out
+
+
+def mont_pow_plain(a: torch.Tensor, bits, field) -> torch.Tensor:
+    """The mont_pow kernel's function in plain PyTorch: from x = 1, square,
+    and multiply by a where the bit is set, MSB first."""
+    x = field.ones(a.shape[:-1], a.device)
+    for bit in bits:
+        x = mont_mul_plain(x, x, field)
+        if bit:
+            x = mont_mul_plain(x, a, field)
+    return x
 
 
 def mont_mul_plain(a: torch.Tensor, b: torch.Tensor, field) -> torch.Tensor:

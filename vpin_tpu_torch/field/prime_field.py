@@ -3,8 +3,9 @@
 Port of vpin_tpu/field/prime_field.py.  Elements stay in Montgomery form
 (R = 2^256) with canonical limbs in [0, N), so every operation's result is a
 unique limb pattern equal to vpin_tpu's.  ``mul`` is kernel K1
-(field/cuda_mont.py); add, sub and select are plain tensor code, as they were
-plain jnp code in the reference.
+(field/cuda_mont.py), and so is ``pow_bits`` (its ``mont_pow`` entry), under
+``inv``; add, sub and select are plain tensor code, as they were plain jnp
+code in the reference.
 
   FQ : l = 2^252 + 27742317777372353535851937790883648493 (base field of E2)
   FP : p = 2^255 - 19 (coordinate field of ristretto255)
@@ -20,7 +21,7 @@ import torch
 from .. import kernels
 from ..device import resolve_device
 from . import limbs as L
-from .cuda_mont import mont_mul
+from .cuda_mont import mont_mul, mont_pow
 
 
 class DeviceConsts(NamedTuple):
@@ -124,13 +125,8 @@ class PrimeField:
 
     def pow_bits(self, a, bits):
         """a^e for a host exponent given as MSB-first bits: square, and
-        multiply where the bit is set."""
-        x = self.ones(a.shape[:-1], a.device)
-        for bit in bits:
-            x = self.mul(x, x)
-            if bit:
-                x = self.mul(x, a)
-        return x
+        multiply where the bit is set.  K1's ``mont_pow``: one launch."""
+        return mont_pow(a, bits, self)
 
     def inv(self, a):
         """Batched inverse via Fermat (a^(N-2)); inv(0) = 0."""

@@ -7,8 +7,11 @@ and an unchanged one loads from the build directory (``csrc/build/``, listed
 in .gitignore).  There is no fallback: a missing nvcc, a failed build or a
 failed launch raises.
 
-``LAUNCHES`` counts the launches of each kernel; ``launch`` adds one after a
-launch that the runtime accepted, and nothing else touches it except a caller
+A source may export several entry points (``ENTRIES``); it is built once
+and each entry is bound from its library.  ``LAUNCHES`` counts the kernel
+launches of each entry; ``launch`` adds the kernels the call launched (one
+unless its caller says otherwise: ``ed_msm`` launches one or two) after a
+call that the runtime accepted, and nothing else touches it except a caller
 that resets it.
 """
 
@@ -30,7 +33,7 @@ BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-#: kernel name -> its source under csrc/; the C entry point is vpin_<name>
+#: kernel name -> its source under csrc/
 SOURCES = {
     "mont_mul": "mont_mul.cu",
     "e2_add": "e2_add.cu",
@@ -39,9 +42,29 @@ SOURCES = {
     "ed_ladder": "ed_ladder.cu",
 }
 
-LAUNCHES = {name: 0 for name in SOURCES}
+_P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_WORDS = ctypes.POINTER(ctypes.c_uint32)
 
-_LOADED: dict = {}
+#: entry -> (kernel whose source exports it, the C function vpin_<entry>'s
+#: argument types before the stream)
+ENTRIES = {
+    "mont_mul": ("mont_mul", [_P] * 3 + [_I64, _WORDS]),
+    "mont_pow": ("mont_mul", [_P] * 2 + [_I64, _WORDS, _WORDS, _I32]),
+    "e2_add": ("e2_add", [_P] * 9 + [_I64, _WORDS]),
+    "e2_scalar_mul": ("e2_scalar_mul",
+                      [_P] * 7 + [_I64, _I32, _I32, _I64, _I64, _WORDS]),
+    "ed_add": ("ed_add", [_P] * 12 + [_I64, _WORDS]),
+    "ed_table": ("ed_add", [_P] * 8 + [_I64, _WORDS]),
+    "ed_msm": ("ed_add", [_P] * 4 + [_I64, _P, _I32, _I64] + [_P] * 8
+               + [_WORDS]),
+    "ed_ladder": ("ed_ladder",
+                  [_P] * 9 + [_I64, _I32, _I32, _I64, _I64, _WORDS]),
+}
+
+LAUNCHES = {name: 0 for name in ENTRIES}
+
+_LIBS: dict = {}     # kernel -> its loaded library
+_FNS: dict = {}      # entry -> its bound C function
 
 
 def _nvcc() -> str:
@@ -99,38 +122,35 @@ def build(names=None) -> dict:
     return logs
 
 
-def _load(name: str):
-    fn = _LOADED.get(name)
+def _load(entry: str):
+    fn = _FNS.get(entry)
     if fn is None:
-        path = library_path(name)
-        if not path.exists():
-            build([name])
-        fn = getattr(ctypes.CDLL(str(path)), "vpin_" + name)
-        p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        consts = ctypes.POINTER(ctypes.c_uint32)
-        fn.argtypes = {
-            "mont_mul": [p] * 3 + [i64, consts, p],
-            "e2_add": [p] * 9 + [i64, consts, p],
-            "e2_scalar_mul": [p] * 7 + [i64, i32, i32, i64, i64, consts, p],
-            "ed_add": [p] * 12 + [i64, consts, p],
-            "ed_ladder": [p] * 9 + [i64, i32, i32, i64, i64, consts, p],
-        }[name]
+        kernel, argtypes = ENTRIES[entry]
+        lib = _LIBS.get(kernel)
+        if lib is None:
+            path = library_path(kernel)
+            if not path.exists():
+                build([kernel])
+            lib = _LIBS[kernel] = ctypes.CDLL(str(path))
+        fn = getattr(lib, "vpin_" + entry)
+        fn.argtypes = argtypes + [_P]
         fn.restype = ctypes.c_int
-        _LOADED[name] = fn
+        _FNS[entry] = fn
     return fn
 
 
-def launch(name: str, device: torch.device, *args) -> None:
-    """Launch kernel ``name`` on ``device``'s current stream.  ``args`` are
-    the C entry point's arguments before the stream; tensors' pointers are
-    passed as ints.  Raises if the launch was refused."""
-    fn = _load(name)
+def launch(entry: str, device: torch.device, *args, count: int = 1) -> None:
+    """Call entry point ``entry`` on ``device``'s current stream.  ``args``
+    are the C function's arguments before the stream; tensors' pointers are
+    passed as ints.  ``count``: the kernels this call launches.  Raises if a
+    launch was refused."""
+    fn = _load(entry)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = fn(*args, stream)
     if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
-    LAUNCHES[name] += 1
+        raise RuntimeError(f"{entry} kernel launch failed: cudaError {rc}")
+    LAUNCHES[entry] += count
 
 
 def check_limbs(name: str, *tensors) -> torch.device:
