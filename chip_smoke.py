@@ -7,11 +7,19 @@
 Phases:
   1. the card's name and power limit (nvidia-smi);
   2. build the five CUDA kernel sources from vpin_tpu_torch/csrc, all at
-     once, and print each kernel's registers and spills;
+     once, and print each kernel's registers, spills and shared memory;
   3. hold each kernel entry bit for bit against its plain PyTorch version on
      the card, at the main path's shapes plus edge and special cases, and
-     time both (CUDA events, after warm-up): K1's mont_mul at 2^16 and at the
-     2^21 comb_ops leaves, and its mont_pow at the witness scan's 18
+     time both (CUDA events, after warm-up): K2's group kernel (8 lanes a
+     pair) and its one-thread e2_add_wide at every batch the main path
+     launches, 1 to 16,384 pairs, and at 1,023 and 2^16 (the special pairs
+     G + G, G + inf, inf + inf, G + (-G) first); K3's group kernel (4 and 8
+     lanes a ladder) at the conv's four shapes (9,216 x 128 bits with inner
+     9, 1,024 x 128, 9,216 x 2 and 9 x 2), at 1,023 and 13 ladders and with
+     no bits (the zero scalar, all ones, the scalar 1 and the identity base
+     among them, and the groups of a warp on different bits); K1's mont_mul
+     at 2^16 and at the 2^21 comb_ops leaves, and its mont_pow at the
+     witness scan's 18
      inverses, at 2^16 elements by l - 2 and by (p - 5) / 8; K4's ed_add up
      to the 1,024 x 2,048 pairs of the SPARK comb_ops fold, its ed_table at
      2,048, 2,049 and 4,096 columns and its ed_msm at the bullet prover's
@@ -359,33 +367,76 @@ def random_points(torch, dev, n: int, seed: int):
     return scale(P, seed + 1), scale(Q, seed + 2)
 
 
-def check_e2_add(torch, dev, rate):
+# K2's batches on the main path: _prefix_adds' one pair, the 9 pairs of a
+# window sum, the 1,024 of a sum_points level or an encryption, up to the
+# 1,024 x 16 of FixedBaseTable.mul's first level; 2^16 and an odd n beside
+ADD_SHAPES = (1, 9, 1023, 1024, 2048, 4096, 8192, 16384, 1 << 16)
+# lanes a pair or a ladder measured side by side: K2's group kernel (8)
+# and its one-thread kernel (e2_add_wide, as 1); K3's group kernel
+ADD_LANES = (1, 8)
+LADDER_LANES = (4, 8)
+
+
+def lanes_ms(torch, fn, lanes, check, launches, repeats=5, passes=1):
+    """{g: device ms} of ``fn(g)`` for each g in ``lanes``, each variant
+    held by ``check(g, out)`` first, on ``passes`` launches."""
+    out = {}
+    for g in lanes:
+        for _ in range(passes):
+            check(g, fn(g))
+        out[g] = kernel_ms(torch, lambda: fn(g), launches=launches,
+                           repeats=repeats)
+    return out
+
+
+def check_e2_add(torch, dev, rate, passes=1):
+    """K2 at every batch the main path launches, its special pairs and an
+    odd n, each entry and lane count against the plain version (on
+    ``passes`` launches each); the first 32 sums of each batch against
+    host_ec.  Returns the rows of e2_add at 1,024 pairs and of e2_add_wide
+    at 16,384, and the 2^16 points for the ladders."""
     from vpin_tpu_torch.curve import cuda_ec
-    from vpin_tpu_torch.curve.weierstrass import E2, take
-    n = 1 << 16
-    P, Q = random_points(torch, dev, n, 3)
-    got = cuda_ec.e2_add(E2, tuple(P), tuple(Q))
-    want = cuda_ec.e2_add_plain(E2, tuple(P), tuple(Q))
-    torch.cuda.synchronize()
-    require(all(torch.equal(g, w) for g, w in zip(got, want)),
-            "e2_add: kernel != plain")
-    # and exact on the host for the special cases and a few more
-    k = 32
-    hp = E2.to_affine_host(take(P, slice(0, k)))
-    hq = E2.to_affine_host(take(Q, slice(0, k)))
-    from vpin_tpu_torch.curve.weierstrass import PointW
-    hr = E2.to_affine_host(PointW(*(c[:k] for c in got)))
-    require(all(hr[i] == hp[i] + hq[i] for i in range(k)),
-            "e2_add: kernel != host_ec")
-    ms = kernel_ms(torch, lambda: cuda_ec.e2_add(E2, tuple(P), tuple(Q)),
-                   launches=50)
-    plain = wall_ms(torch, lambda: cuda_ec.e2_add_plain(E2, tuple(P), tuple(Q)),
-                    repeats=3)
-    bnd, by = bound_ms(MONT_PER_E2_ADD * MUL32_PER_MONT * n, 288 * n, rate)
-    log(f"K2 e2_add n={n}: bit-equal to plain and host_ec; kernel {ms:.4f} ms, "
-        f"plain {plain:.3f} ms, bound {bnd:.4f} ms ({by})")
-    return dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
-                max_abs_err=max_abs_err(torch, got, want)), P
+    from vpin_tpu_torch.curve.weierstrass import E2, PointW, take
+    P2, Q2 = random_points(torch, dev, max(ADD_SHAPES), 3)
+    rows, err = {}, 0
+    for n in ADD_SHAPES:
+        P = tuple(c[:n].contiguous() for c in P2)
+        Q = tuple(c[:n].contiguous() for c in Q2)
+        t = time.perf_counter()
+        want = cuda_ec.e2_add_plain(E2, P, Q)
+        torch.cuda.synchronize()
+        plain = (time.perf_counter() - t) * 1e3
+        k = min(n, 32)
+        hp = E2.to_affine_host(take(PointW(*P), slice(0, k)))
+        hq = E2.to_affine_host(take(PointW(*Q), slice(0, k)))
+        hw = E2.to_affine_host(PointW(*(c[:k] for c in want)))
+        require(all(hw[i] == hp[i] + hq[i] for i in range(k)),
+                f"e2_add_plain n={n}: != host_ec")
+
+        def check(lanes, got):
+            nonlocal err
+            torch.cuda.synchronize()
+            require(all(torch.equal(g, w) for g, w in zip(got, want)),
+                    f"e2_add n={n} lanes={lanes}: kernel != plain")
+            err = max(err, max_abs_err(torch, got, want))
+
+        ms = lanes_ms(torch, lambda g: cuda_ec.e2_add(E2, P, Q, _lanes=g),
+                      ADD_LANES, check, launches=200 if n < 16384 else 50,
+                      passes=passes)
+        bnd, by = bound_ms(MONT_PER_E2_ADD * MUL32_PER_MONT * n, 288 * n, rate)
+        pick = cuda_ec.add_lanes(n)
+        log(f"K2 e2_add n={n}: every kernel bit-equal to plain, plain to "
+            f"host_ec; " + ", ".join(
+                f"{'e2_add_wide' if g == 1 else f'{g} lanes'} {t:.4f} ms"
+                for g, t in ms.items())
+            + f" (the wrapper takes {'e2_add_wide' if pick == 1 else pick});"
+            f" plain {plain:.3f} ms, bound {bnd:.6f} ms ({by})")
+        rows[n] = {g: dict(ms=t, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                           max_abs_err=0) for g, t in ms.items()}
+    group = rows[1024][cuda_ec.add_lanes(1024)]
+    wide = rows[16384][cuda_ec.add_lanes(16384)]
+    group["max_abs_err"] = wide["max_abs_err"] = err
+    return group, wide, PointW(*P2)
 
 
 def ladder_adds(rows: np.ndarray, n: int, inner: int, nrows: int,
@@ -398,52 +449,70 @@ def ladder_adds(rows: np.ndarray, n: int, inner: int, nrows: int,
 
 
 def check_ladder(torch, dev, rate, P, n, n_bits, inner, nrows, label,
-                 plain_repeats=1):
+                 plain_repeats=1, passes=1):
+    """K3 at one shape, each lane count against the plain version (on
+    ``passes`` launches each), the first 16 elements against host_ec.
+    Rows 0-2 (where there are 3) are the zero scalar, all ones and the
+    scalar 1, element 7 is a ladder on the identity, and with inner = 1 the
+    groups of one warp hold different bits."""
     from vpin_tpu_torch.curve import cuda_ec
     from vpin_tpu_torch.curve.host_ec import host_infinity
     from vpin_tpu_torch.curve.weierstrass import E2, PointW, pack_bits
     from vpin_tpu_torch.field.limbs import to_tensor
     rs = np.random.RandomState(n_bits + nrows)
     rows = rs.randint(0, 2, size=(nrows, n_bits)).astype(np.uint8)
-    if nrows >= 3:
+    if nrows >= 3 and n_bits:
         rows[0] = 0                            # ladder of the zero scalar
         rows[1] = 1                            # all bits set
         rows[2] = 0
         rows[2, 0] = 1                         # the scalar 1
+    if inner == 1 and nrows >= 4 and n_bits >= 2:
+        require(len({bytes(r) for r in rows[:4]}) > 1,
+                f"{label}: the first warp's groups hold equal bits")
     words = to_tensor(pack_bits(rows), dev)
     base = tuple(c[:n].clone() for c in P)
     base[0][7] = 0                             # a ladder on the identity
     base[1][7] = E2.F.ones((), dev)
     base[2][7] = 0
-    got = cuda_ec.e2_scalar_mul(E2, base, words, n_bits, inner, nrows)
     t = time.perf_counter()
     want = cuda_ec.e2_scalar_mul_plain(E2, base, words, n_bits, inner, nrows)
     torch.cuda.synchronize()
     plain = (time.perf_counter() - t) * 1e3
-    require(all(torch.equal(g, w) for g, w in zip(got, want)),
-            f"e2_scalar_mul {label}: kernel != plain")
-    k = 16
+    k = min(n, 16)
     hb = E2.to_affine_host(PointW(*(c[:k] for c in base)))
-    hr = E2.to_affine_host(PointW(*(c[:k] for c in got)))
+    hw = E2.to_affine_host(PointW(*(c[:k] for c in want)))
     for i in range(k):
         r = rows[(i // inner) % nrows]
         s = int("".join(str(int(v)) for v in r[::-1]), 2) if n_bits else 0
         want_i = s * hb[i] if s else host_infinity()
-        require(hr[i] == want_i, f"e2_scalar_mul {label}: element {i} != host_ec")
+        require(hw[i] == want_i, f"e2_scalar_mul_plain {label}: element {i} "
+                "!= host_ec")
+    err = 0
+
+    def check(lanes, got):
+        nonlocal err
+        torch.cuda.synchronize()
+        require(all(torch.equal(g, w) for g, w in zip(got, want)),
+                f"e2_scalar_mul {label} lanes={lanes}: kernel != plain")
+        err = max(err, max_abs_err(torch, got, want))
+
     if plain_repeats > 1:
         plain = wall_ms(torch, lambda: cuda_ec.e2_scalar_mul_plain(
             E2, base, words, n_bits, inner, nrows), repeats=plain_repeats)
-    ms = kernel_ms(torch, lambda: cuda_ec.e2_scalar_mul(
-        E2, base, words, n_bits, inner, nrows), launches=3, repeats=3)
+    ms = lanes_ms(torch, lambda g: cuda_ec.e2_scalar_mul(
+        E2, base, words, n_bits, inner, nrows, _lanes=g), LADDER_LANES,
+        check, launches=3, repeats=3, passes=passes)
     adds = ladder_adds(rows, n, inner, nrows, n_bits)
     bnd, by = bound_ms(MONT_PER_E2_ADD * MUL32_PER_MONT * adds,
                        192 * n + words.numel() * 4, rate)
     log(f"K3 e2_scalar_mul {label} ({n} x {n_bits} bits, inner={inner}, "
-        f"rows={nrows}, {adds} complete adds): bit-equal to plain and "
-        f"host_ec; kernel {ms:.4f} ms, plain {plain:.1f} ms, bound {bnd:.4f} "
-        f"ms ({by})")
-    return dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
-                max_abs_err=max_abs_err(torch, got, want))
+        f"rows={nrows}, {adds} complete adds): every lane count bit-equal to "
+        f"plain, plain to host_ec; kernel "
+        + ", ".join(f"{g} lanes {t:.4f} ms" for g, t in ms.items())
+        + f" (the wrapper takes {cuda_ec.ladder_lanes(n)}); plain "
+        f"{plain:.1f} ms, bound {bnd:.6f} ms ({by})")
+    return dict(ms=ms[cuda_ec.ladder_lanes(n)], plain_ms=plain, bound_ms=bnd,
+                bound_by=by, max_abs_err=err)
 
 
 def edwards_points(torch, dev, n: int, seed: int):
@@ -1051,7 +1120,8 @@ def main() -> int:
     # -- phase 3 --
     rows = {"mont_mul": check_mont_mul(torch, dev, mul32_rate),
             "mont_pow": check_mont_pow(torch, dev, mul32_rate)}
-    rows["e2_add"], P = check_e2_add(torch, dev, mul32_rate)
+    rows["e2_add"], rows["e2_add_wide"], P = check_e2_add(torch, dev,
+                                                           mul32_rate)
     rows["ed_add"] = check_ed_add(torch, dev, mul32_rate)
     rows["ed_table"], rows["ed_msm"] = check_ed_msm(torch, dev, mul32_rate)
     M = SIZE * SIZE
@@ -1061,6 +1131,11 @@ def main() -> int:
     check_ladder(torch, dev, mul32_rate, P, M, 128, 1, M, "rho over outputs")
     check_ladder(torch, dev, mul32_rate, P, M * f2, 2, 1, f2,
                  "filter weights", plain_repeats=3)
+    check_ladder(torch, dev, mul32_rate, P, f2, 2, 1, f2,
+                 "the recorded mults", plain_repeats=3)
+    check_ladder(torch, dev, mul32_rate, P, M - 1, 128, 1, M - 1, "odd n")
+    check_ladder(torch, dev, mul32_rate, P, 13, 128, 1, 13, "13 ladders")
+    check_ladder(torch, dev, mul32_rate, P, 13, 0, 1, 13, "no bits")
     k5_rows, own_path = check_ed_ladder(torch, dev, mul32_rate)
     rows["ed_ladder"] = k5_rows[LADDER_SHAPES[-1][0]]
     log("host work: " + ", ".join(f"{k} {v:.2f} ms"
@@ -1082,7 +1157,10 @@ def main() -> int:
     log(f"launches over {REQUESTS} requests: {conv_launches}; over them and "
         f"one request's proof: {launches}")
     log(f"main path: K1 {k1_launches(launches)} launches (mont_mul "
-        f"{launches['mont_mul']}, mont_pow {launches['mont_pow']}), K4 "
+        f"{launches['mont_mul']}, mont_pow {launches['mont_pow']}), K2 "
+        f"{launches['e2_add'] + launches['e2_add_wide']} (e2_add "
+        f"{launches['e2_add']}, e2_add_wide {launches['e2_add_wide']}), K3 "
+        f"{launches['e2_scalar_mul']}, K4 "
         f"{k4_launches(launches)} (ed_add {launches['ed_add']}, ed_table "
         f"{launches['ed_table']}, ed_msm {launches['ed_msm']})")
     for req, (res, fin, _) in enumerate(results):
@@ -1103,6 +1181,7 @@ def main() -> int:
     spec = [("mont_mul", "mont_mul.cu", "vpin_tpu/field/pallas_mont.py:97"),
             ("mont_pow", "mont_mul.cu", "vpin_tpu/field/pallas_mont.py:97"),
             ("e2_add", "e2_add.cu", "vpin_tpu/curve/pallas_ec.py:119"),
+            ("e2_add_wide", "e2_add.cu", "vpin_tpu/curve/pallas_ec.py:119"),
             ("e2_scalar_mul", "e2_scalar_mul.cu",
              "vpin_tpu/curve/pallas_ec.py:135"),
             ("ed_add", "ed_add.cu", "vpin_tpu/curve/pallas_edwards.py:58"),

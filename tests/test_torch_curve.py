@@ -26,6 +26,7 @@ from vpin_tpu_torch.curve.fixed_base import FixedBaseTable, scalars_to_digits
 from vpin_tpu_torch.curve.weierstrass import (
     E2, PointW, bit_rows, pack_bits, scalars_to_bits, take,
 )
+from vpin_tpu_torch.field.limbs import to_tensor
 
 RNG = random.Random(11)
 
@@ -123,6 +124,37 @@ def test_scalar_mul_matches_jax_in_projective_limbs(pairs, n_bits):
     want = jax.jit(JE2.scalar_mul_bits)(JPointW(*base), bits)
     got = E2.scalar_mul_bits(port(base), bits)
     assert_bit_equal(got, want)
+
+
+@pytest.mark.parametrize("n_bits", [0, 9])
+def test_scalar_mul_plain_ragged_and_without_bits(pairs, n_bits):
+    """K3's plain version (what CPU tensors run, and the kernel's yardstick
+    on the card) on 13 points, a batch no group of lanes divides, and with
+    no bits at all, against the reference's scan.  vpin_tpu cannot trace an
+    empty scan (jnp.take on an empty axis), so with no bits the want is the
+    scan's first carry, its identity (0 : R : 0)."""
+    _, _, dP, _, R, _ = pairs
+    base = [np.concatenate([np.asarray(a), np.asarray(b)])[:13]
+            for a, b in zip(dP, R)]
+    rows = np.random.RandomState(n_bits).randint(
+        0, 2, size=(13, n_bits)).astype(np.uint32)
+    want = (jax.jit(JE2.scalar_mul_bits)(JPointW(*base), rows) if n_bits
+            else JE2.infinity((13,)))
+    words = to_tensor(pack_bits(rows), "cpu")
+    got = cuda_ec.e2_scalar_mul_plain(E2, tuple(port(base)), words, n_bits,
+                                      1, 13)
+    assert_bit_equal(PointW(*got), want)
+
+
+def test_lane_rules_at_their_crossovers():
+    """The wrappers' choice of kernel by batch size, at the crossovers
+    measured on the H100 (PERF.md): K2 takes its group kernel with 8 lanes
+    a pair below 8,192 pairs and its one-thread kernel from there; K3 takes
+    8 lanes a ladder below 4,096 ladders and 4 from there."""
+    assert [cuda_ec.add_lanes(n) for n in (1, 1024, 8191, 8192, 1 << 16)] \
+        == [8, 8, 8, 1, 1]
+    assert [cuda_ec.ladder_lanes(n) for n in (9, 1024, 4095, 4096, 9216)] \
+        == [8, 8, 8, 4, 4]
 
 
 def test_scalar_mul_bit_row_broadcast():

@@ -1,5 +1,6 @@
-// Complete projective addition on curve E2 (y^2 = x^3 + a x + b over F_l)
-// for one CUDA thread, every coordinate in registers.
+// Complete projective addition on curve E2 (y^2 = x^3 + a x + b over F_l):
+// for one CUDA thread, every coordinate in registers (e2_add), and shared by
+// a group of lanes of one warp (e2_run, below).
 #pragma once
 
 #include "field.cuh"
@@ -95,4 +96,124 @@ __device__ __forceinline__ void e2_add(Pt& r, const Pt& p, const Pt& q, const Cu
   fe_copy(r.x, x3);
   fe_copy(r.y, y3);
   fe_copy(r.z, z3);
+}
+
+// ---------------------------------------------------------------------
+// The group addition: G lanes of one warp share each element
+// ---------------------------------------------------------------------
+//
+// One thread's addition is a chain of 17 dependent products.  Here G lanes
+// (G = 4 or 8) own one element, its points and working values in the
+// block's shared memory (the slots and layouts of e2_sched.cuh), and run
+// the stage schedule of e2_sched.cuh: in each round of a stage every lane
+// with a product runs the same fe_mul code on the slots its row names, so
+// one addition waits on 4 products (G = 8) or 6 (G = 4), and a pair of
+// additions that share their stages (the ladder step) on 6 or 9.  The
+// kernel's wrapper passes the schedule laid out as an E2Prog (vpin_tpu_torch/curve/
+// e2_sched.py): per mode (the set of additions an element runs: K3's step
+// runs acc + base, base + base, both or neither) and per stage, each lane's
+// rows with their slots resolved for the element's layout, and the number
+// of product rounds; each block copies it into shared memory.  Every lane
+// of a warp runs every stage and round (the round count is the warp's
+// largest, so lanes of other groups or past the end idle through it) and
+// meets the others at a full-warp __syncwarp after each stage: no lane
+// leaves early, so the full mask is every group's.
+
+#include "e2_sched.cuh"
+
+#define E2_ELEMS 16   // elements a block: 16 G threads
+
+static_assert(E2_NSLOT - E2_P0 == E2_NTEMP, "E2_NTEMP counts the working slots");
+static_assert(E2_SLOT_WORDS % 4 == 0 && E2_SLOT_WORDS >= VPIN_NL,
+              "a slot holds 8 limbs at a 16-byte boundary");
+
+struct __align__(16) E2Prog {
+  uint32_t op[E2_MAXOPS + 1];   // kind | dst << 8 | a << 16 | b << 24, element slots
+  uint16_t start[E2_MODES][E2_NSTAGE][E2_MAXG + 1];   // lane l: [start[l], start[l+1])
+  uint8_t rounds[E2_MODES][E2_NSTAGE];                // products on the busiest lane
+};
+static_assert(sizeof(E2Prog) == (4 * (E2_MAXOPS + 1) + 2 * E2_MODES * E2_NSTAGE * (E2_MAXG + 1) +
+                                 E2_MODES * E2_NSTAGE + 15) / 16 * 16,
+              "E2Prog is laid out as e2_sched.py packs it");
+
+// r = a + b or a - b, canonical.  Both and their corrections run side by
+// side and the kind picks one, so the lanes of a stage take one code path
+// and the chain is one carry chain shorter than a subtract then an add.
+__device__ __forceinline__ void fe_add_or_sub(uint32_t r[VPIN_NL], const uint32_t a[VPIN_NL],
+                                              const uint32_t b[VPIN_NL], bool sub,
+                                              const FieldConsts& c) {
+  uint32_t s[VPIN_NL], sn[VPIN_NL], d[VPIN_NL], dn[VPIN_NL], m[VPIN_NL];
+  add8(s, a, b);                              // a + b < 2N
+  const uint32_t neg = sub8(d, a, b);         // a - b mod 2^256
+  const uint32_t keep = sub8(sn, s, c.n);     // s - N; all ones if s < N
+#pragma unroll
+  for (int j = 0; j < VPIN_NL; ++j) m[j] = c.n[j] & neg;
+  add8(dn, d, m);                             // a - b mod N
+#pragma unroll
+  for (int j = 0; j < VPIN_NL; ++j) {
+    const uint32_t sum = sn[j] ^ ((s[j] ^ sn[j]) & keep);
+    r[j] = sub ? dn[j] : sum;
+  }
+}
+
+// One row of a program: slots[dst] = slots[a] op slots[b].
+__device__ __forceinline__ void e2_product(uint32_t op, uint32_t* slots, const FieldConsts& c) {
+  uint32_t x[VPIN_NL], y[VPIN_NL];
+  fe_load(x, slots + ((op >> 16) & 0xff) * E2_SLOT_WORDS);
+  fe_load(y, slots + (op >> 24) * E2_SLOT_WORDS);
+  fe_mul(x, x, y, c);
+  fe_store(slots + ((op >> 8) & 0xff) * E2_SLOT_WORDS, x);
+}
+
+__device__ __forceinline__ void e2_linear(uint32_t op, uint32_t* slots, const FieldConsts& c) {
+  uint32_t x[VPIN_NL], y[VPIN_NL];
+  fe_load(x, slots + ((op >> 16) & 0xff) * E2_SLOT_WORDS);
+  fe_load(y, slots + (op >> 24) * E2_SLOT_WORDS);
+  fe_add_or_sub(x, x, y, (op & 0xff) == E2_SUB, c);
+  fe_store(slots + ((op >> 8) & 0xff) * E2_SLOT_WORDS, x);
+}
+
+// Run mode `mode` of program p (in shared memory) on the element whose
+// slots start at `slots`, as lane `lane` of its group.  Every lane of the
+// warp calls it with the same p.  Each row's word is read one row ahead.
+template <int G>
+__device__ __forceinline__ void e2_run(const E2Prog& p, int mode, int lane, uint32_t* slots,
+                                       const FieldConsts& c) {
+#pragma unroll 1
+  for (int s = 0; s < E2_NSTAGE; ++s) {
+    int i = p.start[mode][s][lane];
+    const int end = p.start[mode][s][lane + 1];
+    const unsigned rounds = __reduce_max_sync(0xffffffffu, p.rounds[mode][s]);
+    uint32_t op = p.op[i];
+#pragma unroll 1
+    for (unsigned r = 0; r < rounds; ++r) {
+      // the adds that feed this lane's next product, then the product,
+      // the warp's lanes together
+      while (i < end && (op & 0xff) != E2_MUL) {
+        const uint32_t next = p.op[++i];
+        e2_linear(op, slots, c);
+        op = next;
+      }
+      __syncwarp();
+      if (i < end) {
+        const uint32_t next = p.op[++i];
+        e2_product(op, slots, c);
+        op = next;
+      }
+    }
+    // rows after a lane's last product: a stage without products is all here
+    while (i < end) {
+      const uint32_t next = p.op[++i];
+      e2_linear(op, slots, c);
+      op = next;
+    }
+    __syncwarp();
+  }
+}
+
+// The block's copy of its program.
+__device__ __forceinline__ void e2_copy_prog(E2Prog& dst, const E2Prog* __restrict__ src) {
+  const uint4* s = reinterpret_cast<const uint4*>(src);
+  uint4* d = reinterpret_cast<uint4*>(&dst);
+  for (int i = threadIdx.x; i < (int)(sizeof(E2Prog) / 16); i += blockDim.x) d[i] = __ldg(s + i);
 }

@@ -8,6 +8,12 @@ CPU tensors run.
 
 Points travel as (x, y, z) tuples of int32 limb tensors (..., 8) in
 Montgomery form, with infinity = (0 : 1 : 0).
+
+Both kernels give each element to a group of lanes of one warp, which runs
+the stage schedule of csrc/e2_sched.cuh (csrc/e2.cuh, curve/e2_sched.py);
+``add_lanes`` and ``ladder_lanes`` say how many for a batch, from the
+times measured on the H100 (PERF.md).  K2 has a second entry, e2_add_wide,
+one thread a pair, for wide batches.
 """
 
 from __future__ import annotations
@@ -15,16 +21,32 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
+from . import e2_sched
 from ..field.cuda_mont import mont_mul64
 from ..field.limbs import N_LIMBS, add_mod, narrow, sub_mod, widen
+
+
+def add_lanes(n: int) -> int:
+    """Lanes a pair for K2 on n pairs: 8, or 1 (the one-thread kernel,
+    e2_add_wide) from 8,192 pairs, where it was the faster on the H100."""
+    return 8 if n < 8192 else 1
+
+
+def ladder_lanes(n: int) -> int:
+    """Lanes a ladder for K3 on n ladders: 8, or 4 from 4,096 ladders,
+    where instruction throughput bounds and 8 lanes idle in more of the
+    rounds."""
+    return 8 if n < 4096 else 4
 
 
 # ----------------------------------------------------------------------
 # K2: complete addition
 # ----------------------------------------------------------------------
 
-def e2_add(curve, P, Q):
-    """P + Q over broadcastable batches of points."""
+def e2_add(curve, P, Q, _lanes=None):
+    """P + Q over broadcastable batches of points.  ``_lanes``, a hook for
+    measuring the choice ``add_lanes`` makes: the kernel's lanes a pair, 8
+    (e2_add) or 1 (e2_add_wide)."""
     dev = kernels.check_limbs("e2_add", *P, *Q)
     if dev.type == "cpu":
         return e2_add_plain(curve, P, Q)
@@ -32,9 +54,15 @@ def e2_add(curve, P, Q):
     ins = [kernels.kernel_operand(t, shape) for t in (*P, *Q)]
     outs = [torch.empty(shape, dtype=torch.int32, device=dev) for _ in range(3)]
     n = outs[0].numel() // N_LIMBS
-    if n:
-        kernels.launch("e2_add", dev, *(t.data_ptr() for t in ins + outs), n,
-                       curve.kernel_consts)
+    lanes = add_lanes(n) if _lanes is None else _lanes
+    if lanes not in (1, 8):
+        raise ValueError(f"e2_add: no kernel for {lanes} lanes a pair")
+    ptrs = [t.data_ptr() for t in ins + outs]
+    if n and lanes == 1:
+        kernels.launch("e2_add_wide", dev, *ptrs, n, curve.kernel_consts)
+    elif n:
+        kernels.launch("e2_add", dev, *ptrs, n, curve.kernel_consts,
+                       e2_sched.program("e2_add", 8, dev).data_ptr())
     return tuple(outs)
 
 
@@ -90,10 +118,13 @@ def _add64(P, Q, a, b3, k):
 # K3: double-and-add ladder
 # ----------------------------------------------------------------------
 
-def e2_scalar_mul(curve, P, words, n_bits: int, inner: int, nrows: int):
+def e2_scalar_mul(curve, P, words, n_bits: int, inner: int, nrows: int,
+                  _lanes=None):
     """[k_i] P_i for a flat batch of n points (each coordinate (n, 8)).
     ``words`` (nrows, W) int32 holds each scalar's bits LSB-first in 32-bit
-    words; point i takes row (i // inner) % nrows."""
+    words; point i takes row (i // inner) % nrows.  ``_lanes``, a hook for
+    measuring the choice ``ladder_lanes`` makes: the kernel's lanes a
+    ladder, 4 or 8."""
     dev = kernels.check_limbs("e2_scalar_mul", *P)
     n = P[0].shape[0]
     _check_bits("e2_scalar_mul", words, n_bits, nrows, inner, dev)
@@ -104,11 +135,14 @@ def e2_scalar_mul(curve, P, words, n_bits: int, inner: int, nrows: int):
     ins = [kernels.kernel_operand(t, t.shape) for t in P]
     words = words.contiguous()
     outs = [torch.empty_like(ins[0]) for _ in range(3)]
+    lanes = ladder_lanes(n) if _lanes is None else _lanes
+    prog = e2_sched.program("e2_scalar_mul", lanes, dev)
     if n:
         kernels.launch("e2_scalar_mul", dev,
                        *(t.data_ptr() for t in ins), words.data_ptr(),
                        *(t.data_ptr() for t in outs), n, n_bits,
-                       words.shape[1], inner, nrows, curve.kernel_consts)
+                       words.shape[1], inner, nrows, curve.kernel_consts,
+                       lanes, prog.data_ptr())
     return tuple(outs)
 
 

@@ -50,9 +50,11 @@ _WORDS = ctypes.POINTER(ctypes.c_uint32)
 ENTRIES = {
     "mont_mul": ("mont_mul", [_P] * 3 + [_I64, _WORDS]),
     "mont_pow": ("mont_mul", [_P] * 2 + [_I64, _WORDS, _WORDS, _I32]),
-    "e2_add": ("e2_add", [_P] * 9 + [_I64, _WORDS]),
+    "e2_add": ("e2_add", [_P] * 9 + [_I64, _WORDS, _P]),
+    "e2_add_wide": ("e2_add", [_P] * 9 + [_I64, _WORDS]),
     "e2_scalar_mul": ("e2_scalar_mul",
-                      [_P] * 7 + [_I64, _I32, _I32, _I64, _I64, _WORDS]),
+                      [_P] * 7 + [_I64, _I32, _I32, _I64, _I64, _WORDS, _I32,
+                                  _P]),
     "ed_add": ("ed_add", [_P] * 12 + [_I64, _WORDS]),
     "ed_table": ("ed_add", [_P] * 8 + [_I64, _WORDS]),
     "ed_msm": ("ed_add", [_P] * 4 + [_I64, _P, _I32, _I64] + [_P] * 8
