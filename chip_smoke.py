@@ -44,11 +44,36 @@ Phases:
      (curve/host_ec.py); the proofs must verify and have the sizes their
      instances' shapes give, and K1 and K4 must run inside the mult proof's
      SPARK spans (SNARK::encode, R1CSEvalProof::prove);
-  6. each entry's launch count on the main path, mont_pow and ed_msm among
+  6. this slice's path, CNN A and LeNet-5 served with the client's BSGS
+     decryption, each entry's launch counts set to 0 before it and read after
+     it: the BSGS table at the reference's m = 3,200,000 built fresh (its
+     keys at 1,000 seeded j equal to the reference's key mix of host j*G,
+     every entry a permutation of 1..m-1 in sorted key order) and known
+     messages up to +-m^2/2 decrypted exactly; three CNN A requests at full
+     width (32x32, FC 64 -> 16 -> 10, stand-in weights from seed 0), each
+     with its rLC checks, 178 mults / 2,144 adds and logits exactly equal to
+     a plaintext integer pipeline of the same fixed-point steps; the
+     transparent CP-SNARK proofs of one warm request's whole trace (2,144
+     adds; 178 mults, on the 253-bit gadget where an rLC-combined FC scalar
+     needs it), verified on the host; then LeNet-5 at (6, 16, 120) kernels,
+     inference only, its 7,508 mults, 16,864 adds and L1-L7 slices equal to
+     artifacts/lenet_witness_parity.json.  The table is built and checked
+     once before the counts are set to 0, and the path's own table is built
+     again after it.  Phase 3 holds the new shapes this path gives K1-K3:
+     the decryptions' 253-bit ladders, a table chunk (2^18 pairs and
+     inverses, its x and y stacked for one product), and each CNN A
+     decryption's giant-step round (2 n K candidates, K from dlog_batch's
+     adaptive stride: 4,194,304 for the conv output down to 81,920 for the
+     logits) in K2's sums, K1's inverses and K1's products of x and y
+     stacked (twice the candidates).  Above 2^18 elements the plain
+     versions run in slices of 2^18, whose int64 intermediates would not
+     fit on the card at once;
+  7. each entry's launch count on the main path, mont_pow and ed_msm among
      them (K5's and the elementwise K4 addition's on their own path,
-     msm_bits, in phase 3).
-The line before the last is a JSON object with every kernel's numbers; the
-last is {"ok": true, "device": {...}}.  Any failure raises: the script then
+     msm_bits, in phase 3), and on phase 6's paths.
+Each phase prints its wall time.  The line before the last is a JSON object
+with every kernel's numbers (``launches``: phase 5's main path;
+``path_launches``: each path's); the last is {"ok": true, "device": {...}}.  Any failure raises: the script then
 exits non-zero without that line.  Without a GPU it exits 1 at once.
 """
 
@@ -91,6 +116,11 @@ FOLD_SHAPE = (1024, 2048)
 # batches: the witness scan's 18 inverses and 2^16 elements
 MONT_LARGE = 1 << 21
 POW_SHAPES = (18, 1 << 16)
+# phase 6's BSGS table is built in chunks of 2^18 points; its decryptions'
+# rounds (decrypt_rounds) give K1 and K2 their other batches
+TABLE_CHUNK = 1 << 18
+# the plain versions run on at most this many elements at a time
+PLAIN_CHUNK = 1 << 18
 # K4's MSM shapes: the bullet prover's table MSM (1 row x 2,048 points) and
 # the comb_ops commitment (1,024 Hyrax rows x 2,049 points) through a table
 # 4,096 wide, as the reference pads it
@@ -105,6 +135,23 @@ PROOF_TAPE_SEED = 3
 # proof measured with vpin_tpu on the CPU).  The full SNARK adds the eval
 # proof, whose size eval_proof_bytes derives from the shapes (BENCH_r05.json:
 # 27,240 B for the 16 adds).
+# phase 6: the reference's table size, CNN A and LeNet-5 at full width
+BSGS_M = 3_200_000
+CNN_REQUESTS = 3
+CNN_FC = (64, 16)
+CNN_MULTS = 2 * (9 + 64 + 16)                       # 178
+CNN_ADDS = 2 * (8 + 64 * 15 + 16 + 63 + 10 + 15)    # 2,144
+LENET_KERNELS = (6, 16, 120)
+# the decryptions' ladders of c1 by the secret key: CNN A's conv output
+# (1,024), pool output (64), FC1 output (16) and logits (10)
+DECRYPT_LADDERS = (1024, 64, 16, 10)
+# each path's entries, which must all launch on it
+PATH_ENTRIES = {
+    "cnn_a": ("mont_mul", "mont_pow", "e2_add", "e2_add_wide", "e2_scalar_mul",
+              "ed_table", "ed_msm"),
+    "lenet": ("mont_mul", "mont_pow", "e2_add", "e2_add_wide",
+              "e2_scalar_mul"),
+}
 ADD_PROOF_BYTES = 6992
 MULT_PROOF_BYTES = 19920
 ADD_FULL_PROOF_BYTES = 27240
@@ -221,6 +268,40 @@ def k4_launches(launched: dict) -> int:
     return sum(launched.get(k, 0) for k in ("ed_add", "ed_table", "ed_msm"))
 
 
+def decrypt_rounds() -> list:
+    """Candidates of one giant-step round of each CNN A decryption, 2 n K,
+    with K from dlog_batch's adaptive stride at m = BSGS_M (max_steps = m):
+    4,194,304, 524,288, 131,072 and 81,920."""
+    from vpin_tpu_torch.nn.bsgs import giant_stride
+    return [2 * n * giant_stride(n, BSGS_M) for n in DECRYPT_LADDERS]
+
+
+def chunked(torch, fn, n: int, *args):
+    """``fn(*args)`` in slices of at most PLAIN_CHUNK along the leading
+    axis of every argument (a tensor or a tuple of tensors), concatenated:
+    the plain versions' int64 intermediates take 2-24 KB an element."""
+    if n <= PLAIN_CHUNK:
+        return fn(*args)
+
+    def cut(x, s):
+        return tuple(c[s] for c in x) if isinstance(x, tuple) else x[s]
+
+    outs = [fn(*(cut(a, slice(i, i + PLAIN_CHUNK)) for a in args))
+            for i in range(0, n, PLAIN_CHUNK)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(c) for c in zip(*outs))
+    return torch.cat(outs)
+
+
+def timed_plain(torch, fn):
+    """(``fn()``, its host ms ending in a device synchronize)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
 def max_abs_err(torch, got, want) -> int:
     return max(int((g.long() - w.long()).abs().max().item()) if g.numel() else 0
                for g, w in zip(got, want))
@@ -293,14 +374,36 @@ def check_mont_mul(torch, dev, rate):
     bnd, by = bound_ms(MUL32_PER_MONT * n, 96 * n, rate)
     log(f"K1 mont_mul Fl n={n} (the comb_ops leaves): bit-equal to plain; "
         f"kernel {ms:.4f} ms, plain {plain:.3f} ms, bound {bnd:.4f} ms ({by})")
+    # phase 6: a table chunk's and each decrypt round's x * zinv and y * zinv
+    # (r products each) and their x, y stacked for from_mont (2 r)
+    sizes = sorted({s * r for r in [TABLE_CHUNK] + decrypt_rounds()
+                    for s in (1, 2)})
+    for seed, n in enumerate(sizes, 20):
+        a = field_operands(torch, FQ, n, seed, dev)
+        b = torch.flip(field_operands(torch, FQ, n, seed + 10, dev),
+                       [0]).contiguous()
+        got = mont_mul(a, b, FQ)
+        want, bsgs_plain = timed_plain(torch, lambda: chunked(
+            torch, lambda x, y: mont_mul_plain(x, y, FQ), n, a, b))
+        require(torch.equal(got, want), f"mont_mul Fl n={n}: kernel != plain")
+        err = max(err, max_abs_err(torch, [got], [want]))
+        del got, want
+        bsgs_ms = kernel_ms(torch, lambda: mont_mul(a, b, FQ), launches=20)
+        bnd_n, by_n = bound_ms(MUL32_PER_MONT * n, 96 * n, rate)
+        log(f"K1 mont_mul Fl n={n} (BSGS: a table chunk or a decrypt round, "
+            f"x and y alone or stacked): bit-equal to plain; kernel "
+            f"{bsgs_ms:.4f} ms, plain {bsgs_plain:.3f} ms, bound "
+            f"{bnd_n:.4f} ms ({by_n})")
+        del a, b
     return dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
                 max_abs_err=err)
 
 
 def check_mont_pow(torch, dev, rate):
     """K1's mont_pow at the witness scan's inverses (18 elements by l - 2),
-    at 2^16 elements by l - 2, and at ristretto255's square-root exponent
-    (p - 5) / 8; edge values lead every batch.  Returns the 2^16 row."""
+    at 2^16 elements by l - 2, at ristretto255's square-root exponent
+    (p - 5) / 8, and at the BSGS batches by l - 2; edge values lead every
+    batch.  Returns the 2^16 row."""
     from vpin_tpu_torch.curve.ristretto import RISTRETTO as R
     from vpin_tpu_torch.field import FP, FQ
     from vpin_tpu_torch.field.cuda_mont import mont_pow, mont_pow_plain
@@ -310,12 +413,14 @@ def check_mont_pow(torch, dev, rate):
               "l - 2, the witness scan's inverses"),
              (FQ, FQ._inv_exp_bits, large, "l - 2"),
              (FP, R._sqrt_exp_bits, large, "(p - 5) / 8")]
+    cases += [(FQ, FQ._inv_exp_bits, n, "l - 2, BSGS")
+              for n in sorted({TABLE_CHUNK, *decrypt_rounds()})]
     out, err = None, 0
     for seed, (F, bits, n, label) in enumerate(cases, 40):
         a = field_operands(torch, F, max(n, 64), seed, dev)[:n].contiguous()
         got = mont_pow(a, bits, F)
-        want = mont_pow_plain(a, bits, F)
-        torch.cuda.synchronize()
+        want, plain = timed_plain(torch, lambda: chunked(
+            torch, lambda x: mont_pow_plain(x, bits, F), n, a))
         require(torch.equal(got, want), f"mont_pow {label}: kernel != plain")
         err = max(err, max_abs_err(torch, [got], [want]))
         # exact on the host: Montgomery residues x R -> x^e R
@@ -327,9 +432,9 @@ def check_mont_pow(torch, dev, rate):
         require(all(int(g) == pow(int(x) * Rinv % N, e, N) * R_ % N
                     for g, x in zip(gs, xs)),
                 f"mont_pow {label}: kernel != exact host power")
+        del got, want
         ms = kernel_ms(torch, lambda: mont_pow(a, bits, F), launches=5,
                        repeats=3)
-        plain = wall_ms(torch, lambda: mont_pow_plain(a, bits, F))
         products = len(bits) + sum(bits)
         per = MUL32_PER_MONT_P if F is FP else MUL32_PER_MONT
         bnd, by = bound_ms(per * products * n, 64 * n, rate)
@@ -345,7 +450,8 @@ def check_mont_pow(torch, dev, rate):
 def random_points(torch, dev, n: int, seed: int):
     """n projective points of E2 on the device: the seven special sums of
     tests/test_curve_e2.py first, then random multiples of G, each scaled
-    by a random Z (so no two share a representation)."""
+    by a random Z (so no two share a representation).  The multiples are
+    drawn from a pool of 256 on the card."""
     from vpin_tpu_torch.curve.host_ec import E2_G_HOST, E2_ORDER, host_infinity
     from vpin_tpu_torch.curve.weierstrass import E2, PointW
     G, INF = E2_G_HOST, host_infinity()
@@ -354,8 +460,14 @@ def random_points(torch, dev, n: int, seed: int):
     Q_sp = [G, INF, G, INF, -G, 2 * G, -3 * G]
     pool = [rng.randrange(1, E2_ORDER) * G for _ in range(256)]
     idx = np.random.RandomState(seed).randint(0, 256, size=n - 7)
-    P = E2.from_affine_host(P_sp + [pool[i] for i in idx], dev)
-    Q = E2.from_affine_host(Q_sp + [pool[i] for i in idx[::-1]], dev)
+    base = E2.from_affine_host(P_sp + Q_sp + pool, dev)
+    pick = torch.from_numpy(idx).to(dev) + 14
+
+    def points(first, rows):
+        return PointW(*(torch.cat([c[first:first + 7], c[rows]])
+                        for c in base))
+
+    P, Q = points(0, pick), points(7, pick.flip(0))
     F = E2.F
 
     def scale(R, s):
@@ -369,8 +481,11 @@ def random_points(torch, dev, n: int, seed: int):
 
 # K2's batches on the main path: _prefix_adds' one pair, the 9 pairs of a
 # window sum, the 1,024 of a sum_points level or an encryption, up to the
-# 1,024 x 16 of FixedBaseTable.mul's first level; 2^16 and an odd n beside
-ADD_SHAPES = (1, 9, 1023, 1024, 2048, 4096, 8192, 16384, 1 << 16)
+# 1,024 x 16 of FixedBaseTable.mul's first level; 2^16 and an odd n beside;
+# then phase 6's BSGS batches: a table chunk (2^18 pairs) and each CNN A
+# decrypt round (decrypt_rounds)
+ADD_SHAPES = (1, 9, 1023, 1024, 2048, 4096, 8192, 16384, 1 << 16,
+              TABLE_CHUNK)
 # lanes a pair or a ladder measured side by side: K2's group kernel (8)
 # and its one-thread kernel (e2_add_wide, as 1); K3's group kernel
 ADD_LANES = (1, 8)
@@ -397,15 +512,14 @@ def check_e2_add(torch, dev, rate, passes=1):
     at 16,384, and the 2^16 points for the ladders."""
     from vpin_tpu_torch.curve import cuda_ec
     from vpin_tpu_torch.curve.weierstrass import E2, PointW, take
-    P2, Q2 = random_points(torch, dev, max(ADD_SHAPES), 3)
+    shapes = sorted({*ADD_SHAPES, *decrypt_rounds()})
+    P2, Q2 = random_points(torch, dev, max(shapes), 3)
     rows, err = {}, 0
-    for n in ADD_SHAPES:
+    for n in shapes:
         P = tuple(c[:n].contiguous() for c in P2)
         Q = tuple(c[:n].contiguous() for c in Q2)
-        t = time.perf_counter()
-        want = cuda_ec.e2_add_plain(E2, P, Q)
-        torch.cuda.synchronize()
-        plain = (time.perf_counter() - t) * 1e3
+        want, plain = timed_plain(torch, lambda: chunked(
+            torch, lambda p, q: cuda_ec.e2_add_plain(E2, p, q), n, P, Q))
         k = min(n, 32)
         hp = E2.to_affine_host(take(PointW(*P), slice(0, k)))
         hq = E2.to_affine_host(take(PointW(*Q), slice(0, k)))
@@ -1087,6 +1201,213 @@ def check_request(torch, res, fin, req: int) -> None:
         check_conv_outputs(image, full.reshape(SIZE, SIZE), filt, pixels)
 
 
+# ----------------------------------------------------------------------
+# phase 6: CNN A and LeNet-5 with the client's BSGS decryption
+# ----------------------------------------------------------------------
+
+def build_table(torch, dev):
+    """The BSGS table at m = BSGS_M, built fresh on the card and checked:
+    sorted keys, a permutation of 1..m-1, and the keys at 1,000 seeded j
+    equal to the reference's numpy key mix of host j*G."""
+    from vpin_tpu_torch.curve.host_ec import E2_G_HOST
+    from vpin_tpu_torch.nn.bsgs import BsgsTable, _mix_keys
+    t = time.perf_counter()
+    table = BsgsTable.build(BSGS_M, device=dev)
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t) * 1e3
+    keys, perm = table.keys_sorted, table.perm
+    require(keys.dtype == np.uint64 and keys.shape == (BSGS_M - 1,),
+            f"table keys {keys.dtype} {keys.shape}")
+    require(bool((keys[1:] >= keys[:-1]).all()), "table keys not sorted")
+    require(np.array_equal(np.sort(perm), np.arange(1, BSGS_M)),
+            "table perm is not a permutation of 1..m-1")
+    where = np.empty(BSGS_M, dtype=np.int64)
+    where[perm] = np.arange(BSGS_M - 1)
+    js = sorted(random.Random(7).sample(range(2, BSGS_M - 1), 998))
+    js = [1] + js + [BSGS_M - 1]
+    pts = [j * E2_G_HOST for j in js]
+    require(np.array_equal(keys[where[js]], _mix_keys([P.x for P in pts],
+                                                      [P.y for P in pts])),
+            "table keys differ from the host key mix of j*G")
+    log(f"BSGS table m={BSGS_M}: built in {build_ms:.1f} ms on the card; "
+        f"sorted, a permutation, keys at {len(js)} seeded j equal to the "
+        f"host key mix")
+    return table, build_ms
+
+
+def path_table(torch, dev, checked):
+    """The CNN A path's own table, built fresh as the CLI builds it, equal
+    to the checked one."""
+    from vpin_tpu_torch.nn.bsgs import BsgsTable
+    t = time.perf_counter()
+    table = BsgsTable.build(BSGS_M, device=dev)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    require(np.array_equal(table.keys_sorted, checked.keys_sorted)
+            and np.array_equal(table.perm, checked.perm),
+            "the path's BSGS table differs from the checked one")
+    log(f"BSGS table m={BSGS_M} for the CNN A path: built in {ms:.1f} ms, "
+        f"equal to the checked one")
+    return table
+
+
+def check_decrypt(torch, dev, table):
+    """Known messages around the table's edges and up to +-m^2/2 through
+    encrypt_batch and decrypt_batch."""
+    from vpin_tpu_torch.nn.elgamal import KeyPair, decrypt_batch, encrypt_batch
+    m = BSGS_M
+    msgs = [0, 1, -1, m - 1, -(m - 1), m, -m, m + 1, -(m + 1), 10**12 + 7,
+            -(10**12) - 3, m * m // 2 - 1, -(m * m // 2) + 5]
+    key = KeyPair.generate(random.Random(0), device=dev)
+    ct = encrypt_batch(msgs, key, random.Random(9))
+    t = time.perf_counter()
+    got = decrypt_batch(ct, key, table)
+    ms = (time.perf_counter() - t) * 1e3
+    require(got.tolist() == msgs, f"decrypt_batch: {got.tolist()} != {msgs}")
+    log(f"decrypt_batch of {len(msgs)} known messages up to +-m^2/2: exact, "
+        f"{table.last_rounds} giant-step rounds, {ms:.1f} ms")
+
+
+def cnn_plain_logits(image, weights, k: int = 4):
+    """CNN A on plaintext integers with the fixed-point steps of the
+    encrypted pipeline: conv3 (pad 1) by the integer filter, ReLU, k x k
+    window sums times fixed_point(1/k^2), shift 26, FC1 with the encoded
+    weights plus the encoded bias, ReLU, shift 32, FC2, ReLU."""
+    from vpin_tpu_torch.nn import fixed_point as fp
+    from vpin_tpu_torch.nn.models import CONV_FILTERS
+    x = fp.encode(fp.min_max_scaling(image)).astype(np.int64)
+    filt = CONV_FILTERS[3]
+    H = x.shape[0]
+    xp = np.pad(x, 1)
+    conv = sum(int(filt[a, b]) * xp[a:a + H, b:b + H]
+               for a in range(3) for b in range(3))
+    act = np.maximum(0, conv)
+    pooled = act.reshape(H // k, k, H // k, k).sum(axis=(1, 3)) \
+        * fp.pool_reciprocal_fixed(k)
+    v = fp.shift(pooled.reshape(-1), 26).astype(np.int64)
+
+    def fc(v, layer):
+        w = fp.encode(weights[f"weight_{layer}"]).astype(np.int64)
+        b = fp.encode(weights[f"bias_{layer}"]).astype(np.int64)
+        return v @ w + b
+
+    h = fp.shift(np.maximum(0, fc(v, "fc1")), 32).astype(np.int64)
+    return np.maximum(0, fc(h, "fc2"))
+
+
+def run_cnn_requests(torch, dev, table):
+    """CNN_REQUESTS CNN A requests through run_cnn_workload, each held to
+    its trace counts and the plaintext pipeline's logits."""
+    from vpin_tpu_torch import kernels
+    from vpin_tpu_torch.nn.elgamal import KeyPair
+    from vpin_tpu_torch.nn.models import make_random_weights, run_cnn_workload
+    key = KeyPair.generate(random.Random(0), device=dev)
+    img = np.random.RandomState(0).uniform(0.0, 1.0, (SIZE, SIZE)).astype(
+        np.float32)
+    weights = make_random_weights(*CNN_FC, seed=0)
+    want = cnn_plain_logits(img, weights)
+    results = []
+    for req in range(CNN_REQUESTS):
+        before = dict(kernels.LAUNCHES)
+        t = time.perf_counter()
+        res = run_cnn_workload("A", img, key, table, weights=weights,
+                               rng=random.Random(1 + req), timed=True)
+        request_ms = (time.perf_counter() - t) * 1e3
+        launched = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+        require(res.trace.num_mults == CNN_MULTS
+                and res.trace.num_adds == CNN_ADDS,
+                f"CNN A request {req}: {res.trace.num_mults} mults, "
+                f"{res.trace.num_adds} adds (want {CNN_MULTS}, {CNN_ADDS})")
+        require(not res.engine.pending_checks, "rLC checks left unflushed")
+        require(np.array_equal(res.logits, want),
+                f"CNN A request {req}: logits {res.logits.tolist()} != "
+                f"plaintext {want.tolist()}")
+        times = {f"{k}_ms": v * 1e3 for k, v in res.timings.items()
+                 if k != "total"}
+        times["request_ms"] = request_ms
+        log(f"CNN A request {req} ({'cold' if req == 0 else 'warm'}): "
+            + ", ".join(f"{k} {v:.1f}" for k, v in times.items())
+            + f"; giant-step rounds per decrypt {res.decrypt_rounds}; "
+            f"{CNN_MULTS} mults / {CNN_ADDS} adds, rLC ok, logits equal to "
+            f"the plaintext pipeline; launches {launched}")
+        results.append((res, times))
+    log(f"CNN A logits: {want.tolist()}")
+    return results
+
+
+def prove_cnn(torch, dev, res):
+    """The transparent CP-SNARK proofs of one CNN A request's whole trace,
+    verified on the host.  The mult proof takes the 253-bit gadget when an
+    rLC-combined FC scalar needs more than 128 bits."""
+    from vpin_tpu_torch.gadgets import point_addition, point_mult
+    from vpin_tpu_torch.runner.proof_runner import (
+        prove_point_add, prove_point_mult, trace_args,
+    )
+    add, mult = trace_args(res.trace.finalize())
+    n_bits = 253 if max(mult[0]) >= 1 << 128 else 128
+    out = {}
+    for label, fn, args, shape in (
+            ("add", prove_point_add, add,
+             point_addition.build_matrices(len(add[0]))[3:5]),
+            ("mult", prove_point_mult, mult,
+             point_mult.build_matrices(len(mult[0]), n_bits)[3:5])):
+        t = time.perf_counter()
+        st = fn(*args, tape_seed=PROOF_TAPE_SEED, quiet=True, device=dev,
+                full_snark=False)
+        wall = (time.perf_counter() - t) * 1e3
+        require(st.size_bytes > 0, f"CNN A {label} proof is empty")
+        log(f"CNN A {label} proof ({len(args[0])} {label}s"
+            + (f", {n_bits}-bit gadget" if label == "mult" else "")
+            + f", {shape[0]} constraints, {shape[1]} variables): "
+            f"{st.size_bytes} B, verified; prove {st.gen_ms} ms, verify "
+            f"{st.ver_ms} ms, wall {wall:.0f} ms")
+        out[label] = st
+    return out
+
+
+def run_lenet(torch, dev, table):
+    """LeNet-5 at full geometry, inference only: counts and slices equal to
+    artifacts/lenet_witness_parity.json (its logits came from the
+    reference's weights, so they are not compared)."""
+    from pathlib import Path
+    from vpin_tpu_torch.nn.elgamal import KeyPair
+    from vpin_tpu_torch.nn.models import make_random_weights, run_lenet_workload
+    parity = json.loads((Path(__file__).resolve().parent / "artifacts"
+                         / "lenet_witness_parity.json").read_text())
+    key = KeyPair.generate(random.Random(0), device=dev)
+    img = np.random.RandomState(0).uniform(0.0, 1.0, (32, 32)).astype(
+        np.float32)
+    t = time.perf_counter()
+    res = run_lenet_workload(img, key, table,
+                             weights=make_random_weights(120, 84, seed=0),
+                             rng=random.Random(1), num_kernels=LENET_KERNELS,
+                             timed=True)
+    wall = (time.perf_counter() - t) * 1e3
+    require(res.trace.num_mults == parity["num_mults"]
+            and res.trace.num_adds == parity["num_adds"],
+            f"LeNet: {res.trace.num_mults} mults, {res.trace.num_adds} adds "
+            f"(want {parity['num_mults']}, {parity['num_adds']})")
+    want = {k: (tuple(v["mults"]), tuple(v["adds"]))
+            for k, v in parity["layer_slices"].items()}
+    require(res.layer_slices == want,
+            f"LeNet slices {res.layer_slices} != {want}")
+    log(f"LeNet-5 {LENET_KERNELS}: {res.trace.num_mults} mults / "
+        f"{res.trace.num_adds} adds and L1-L7 slices equal to the artifact; "
+        f"wall {wall:.0f} ms ("
+        + ", ".join(f"{k} {v * 1e3:.0f}" for k, v in res.timings.items())
+        + f" ms); {len(res.decrypt_rounds)} decryptions, "
+        f"{sum(res.decrypt_rounds)} giant-step rounds")
+    return res
+
+
+def path_launches(kernels, name: str, launched: dict) -> dict:
+    """Require every entry of path ``name`` to have launched on it."""
+    idle = [k for k in PATH_ENTRIES[name] if launched[k] == 0]
+    require(not idle, f"{name}: {idle} not launched on the path: {launched}")
+    log(f"launches on the {name} path: {launched}")
+    return launched
+
+
 def main() -> int:
     import torch
     kernels_only = "--kernels" in sys.argv[1:]
@@ -1094,6 +1415,13 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from vpin_tpu_torch import kernels
+    t_run = t_phase = time.perf_counter()
+
+    def phase_done(n: int) -> None:
+        nonlocal t_phase
+        now = time.perf_counter()
+        log(f"phase {n}: {now - t_phase:.1f} s (run {now - t_run:.1f} s)")
+        t_phase = now
 
     # -- phase 1 --
     card = smi("name,power.limit")
@@ -1106,6 +1434,7 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
         f"{props.multi_processor_count} SMs at up to {max_clock_mhz:.0f} MHz: "
         f"{mul32_rate / 1e12:.2f} T 32-bit multiplies/s")
+    phase_done(1)
 
     # -- phase 2 --
     t = time.perf_counter()
@@ -1116,6 +1445,7 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"  {name}: {line.strip()}")
+    phase_done(2)
 
     # -- phase 3 --
     rows = {"mont_mul": check_mont_mul(torch, dev, mul32_rate),
@@ -1136,16 +1466,23 @@ def main() -> int:
     check_ladder(torch, dev, mul32_rate, P, M - 1, 128, 1, M - 1, "odd n")
     check_ladder(torch, dev, mul32_rate, P, 13, 128, 1, 13, "13 ladders")
     check_ladder(torch, dev, mul32_rate, P, 13, 0, 1, 13, "no bits")
+    for n in DECRYPT_LADDERS:
+        row = check_ladder(torch, dev, mul32_rate, P, n, 253, 1, 1,
+                           f"decrypt c1 by the key ({n})")
+        rows["e2_scalar_mul"]["max_abs_err"] = max(
+            rows["e2_scalar_mul"]["max_abs_err"], row["max_abs_err"])
     k5_rows, own_path = check_ed_ladder(torch, dev, mul32_rate)
     rows["ed_ladder"] = k5_rows[LADDER_SHAPES[-1][0]]
     log("host work: " + ", ".join(f"{k} {v:.2f} ms"
                                   for k, v in host_work_ms().items()))
+    phase_done(3)
     if kernels_only:
         log("--kernels: stopping after phase 3")
         return 0
 
     # -- phase 4 --
     replay_golden(torch, dev)
+    phase_done(4)
 
     # -- phase 5 --
     for name in kernels.LAUNCHES:
@@ -1169,8 +1506,29 @@ def main() -> int:
             f"pixels per half equal to host_ec")
     warm = [r[2]["request_ms"] for r in results[1:]]
     log(f"warm request median {statistics.median(warm):.1f} ms on {card}")
+    paths = {"conv": dict(launches)}
+    phase_done(5)
 
     # -- phase 6 --
+    # the table's and decryption's checks, off the path's counts
+    checked, _ = build_table(torch, dev)
+    check_decrypt(torch, dev, checked)
+    for name in kernels.LAUNCHES:
+        kernels.LAUNCHES[name] = 0
+    table = path_table(torch, dev, checked)
+    cnn = run_cnn_requests(torch, dev, table)
+    prove_cnn(torch, dev, cnn[1][0])
+    paths["cnn_a"] = path_launches(kernels, "cnn_a", dict(kernels.LAUNCHES))
+    for key in cnn[0][1]:
+        log(f"CNN A warm {key} median "
+            f"{statistics.median(r[1][key] for r in cnn[1:]):.1f}")
+    for name in kernels.LAUNCHES:
+        kernels.LAUNCHES[name] = 0
+    run_lenet(torch, dev, table)
+    paths["lenet"] = path_launches(kernels, "lenet", dict(kernels.LAUNCHES))
+    phase_done(6)
+
+    # -- phase 7 --
     # K5 and the elementwise K4 addition lie off the main path; their counts
     # are those of their own path, msm_bits (phase 3)
     log(f"off the main path: {OWN_PATH} launched {[launches[k] for k in OWN_PATH]}"
@@ -1195,8 +1553,10 @@ def main() -> int:
          "launches": launches[name], "max_abs_err": rows[name]["max_abs_err"],
          "ms": rows[name]["ms"], "plain_ms": rows[name]["plain_ms"],
          "bound_ms": rows[name]["bound_ms"],
-         "bound_by": rows[name]["bound_by"], "library_ms": None}
+         "bound_by": rows[name]["bound_by"], "library_ms": None,
+         "path_launches": {p: n[name] for p, n in paths.items()}}
         for name, src, replaces in spec]}
+    phase_done(7)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

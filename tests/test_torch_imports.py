@@ -1,7 +1,10 @@
 """The port stands alone: no file of vpin_tpu_torch, nor chip_smoke.py,
-imports JAX or anything of vpin_tpu (checked on the source, by AST)."""
+imports JAX or anything of vpin_tpu (checked on the source, by AST, and at
+run time in a fresh interpreter)."""
 
 import ast
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -36,6 +39,26 @@ def test_the_walk_sees_the_package():
     assert "vpin_tpu_torch/spark/sparse_mlpoly.py" in names
     assert "vpin_tpu_torch/spark/product_tree.py" in names
     assert "vpin_tpu_torch/spark/__init__.py" in names
+    for mod in ("nn/bsgs.py", "nn/models.py", "nn/accuracy.py", "convert.py",
+                "runner/cli.py"):
+        assert f"vpin_tpu_torch/{mod}" in names
     tree = ast.parse("import jax.numpy as jnp\nfrom vpin_tpu.field import FQ\n"
                      "from .field import FQ\n")
     assert list(_imported_modules(tree)) == ["jax.numpy", "vpin_tpu.field"]
+
+
+def test_no_jax_or_vpin_tpu_at_run_time():
+    """Importing the CNN slice's modules (and the CLI) loads neither JAX nor
+    vpin_tpu."""
+    code = (
+        "import sys\n"
+        "import vpin_tpu_torch.nn.bsgs, vpin_tpu_torch.nn.models\n"
+        "import vpin_tpu_torch.nn.accuracy, vpin_tpu_torch.convert\n"
+        "import vpin_tpu_torch.runner.cli\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'vpin_tpu'))\n"
+        "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"

@@ -16,6 +16,7 @@ from .curve.ristretto import PointE
 from .curve.weierstrass import PointW
 from .device import resolve_device
 from .field.limbs import to_numpy, to_tensor
+from .nn.bsgs import BsgsTable
 from .nn.elgamal import KeyPair
 from .snark.r1cs import SparseMat
 
@@ -93,4 +94,36 @@ def sparse_mat_from_jax(m) -> SparseMat:
                     m.num_rows, m.num_cols_hint)
     if out.codebook != book or not np.array_equal(out.codes, codes):
         raise ValueError("sparse_mat_from_jax: codebook order differs")
+    return out
+
+
+def bsgs_table_from_jax(table) -> BsgsTable:
+    """A vpin_tpu BsgsTable (or anything with ``m``, ``keys_sorted`` and
+    ``perm``) -> the port's, with copies of the same host arrays."""
+    keys = np.array(table.keys_sorted, dtype=np.uint64)
+    perm = np.array(table.perm, dtype=np.int64)
+    if keys.shape != perm.shape or keys.ndim != 1:
+        raise ValueError("bsgs_table_from_jax: keys and perm differ in shape")
+    return BsgsTable(int(table.m), keys, perm)
+
+
+def bsgs_table_to_jax(table: BsgsTable) -> tuple:
+    """The port's table -> (m, keys_sorted, perm) as numpy arrays, the
+    arguments of vpin_tpu's BsgsTable constructor."""
+    return (table.m, np.array(table.keys_sorted, dtype=np.uint64),
+            np.array(table.perm, dtype=np.int64))
+
+
+def weights_from_jax(weights) -> dict:
+    """FC weights (weight_fc1, bias_fc1, weight_fc2, bias_fc2; numpy or JAX
+    arrays) -> a dict of float32 numpy arrays, with the shapes checked:
+    (n_in, n_hidden), (n_hidden,), (n_hidden, n_out), (n_out,)."""
+    out = {k: np.array(weights[k], dtype=np.float32)
+           for k in ("weight_fc1", "bias_fc1", "weight_fc2", "bias_fc2")}
+    w1, b1, w2, b2 = (out[k].shape for k in
+                      ("weight_fc1", "bias_fc1", "weight_fc2", "bias_fc2"))
+    if len(w1) != 2 or len(w2) != 2 or b1 != (w1[1],) or w2[0] != w1[1] \
+            or b2 != (w2[1],):
+        raise ValueError(f"weights_from_jax: inconsistent shapes {w1}, {b1}, "
+                         f"{w2}, {b2}")
     return out

@@ -1,9 +1,12 @@
 """Exponential ElGamal over curve E2, batched on the device.
 
-Port of vpin_tpu/nn/elgamal.py (encryption; decryption and BSGS come with a
-later slice).  Enc(m) = (c1, c2) = (r*G, m*G + r*h), r random in [1, q-2],
-drawn from the caller's random.Random in the reference's order, so the same
-seed gives the same ciphertexts as vpin_tpu.
+Port of vpin_tpu/nn/elgamal.py (reference: src/convolution/Client.py:19-30
+encrypt; src/cnn_networks/Client.py:215-249 decrypt).
+  Enc(m) = (c1, c2) = (r*G, m*G + r*h), r random in [1, q-2], drawn from the
+           caller's random.Random in the reference's order, so the same seed
+           gives the same ciphertexts as vpin_tpu;
+  Dec    = dlog(c2 - x*c1) by baby-step/giant-step (nn/bsgs.py), trying both
+           +M and -M to recover signed messages.
 """
 
 from __future__ import annotations
@@ -17,14 +20,19 @@ import torch
 
 from ..curve.fixed_base import FixedBaseTable, scalars_to_digits
 from ..curve.host_ec import E2_G_HOST, E2_ORDER, HostPoint
-from ..curve.weierstrass import E2, PointW, take
+from ..curve.weierstrass import E2, PointW, scalars_to_bits, take
 from ..device import resolve_device
+from .bsgs import BsgsTable
 
 
 class CipherTensor(NamedTuple):
     """A batch of ElGamal ciphertexts: two point batches of equal shape."""
     c1: PointW
     c2: PointW
+
+    @property
+    def batch_shape(self):
+        return self.c1.batch_shape
 
 
 _G_TABLES: dict = {}
@@ -90,3 +98,18 @@ def encrypt_batch(messages, key: KeyPair,
 
     c2 = E2.add(mg, rh)
     return CipherTensor(c1, c2)
+
+
+def decrypt_batch(ct: CipherTensor, key: KeyPair, table: BsgsTable,
+                  max_steps: Optional[int] = None) -> np.ndarray:
+    """Decrypt to signed host integers (an object array of the ciphertexts'
+    batch shape): one 253-bit K3 ladder of c1 by the secret x, one K2
+    subtraction, then the batched BSGS search (reference: Client.py
+    decrypt_c1_c2 + giant_step)."""
+    shape = ct.batch_shape
+    c1 = PointW(*(c.reshape(-1, c.shape[-1]) for c in ct.c1))
+    c2 = PointW(*(c.reshape(-1, c.shape[-1]) for c in ct.c2))
+    s = E2.scalar_mul_bits(c1, scalars_to_bits(key.x, 253))
+    M = E2.add(c2, E2.neg(s))               # m*G
+    vals = table.dlog_batch(M, max_steps=max_steps)
+    return np.asarray(vals, dtype=object).reshape(shape)

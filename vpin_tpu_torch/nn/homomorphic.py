@@ -1,8 +1,11 @@
-"""Homomorphic conv over ElGamal ciphertext halves, with the rLC check.
+"""Homomorphic CNN layers over ElGamal ciphertext halves, with the rLC check.
 
-Port of vpin_tpu/nn/homomorphic.py (conv2d; pooling, FC and channel sums
-come with the CNN slice).  Reference: src/cnn_networks/Server.py:268-323
-(conv) and :151-266 (rLC, a Freivalds check).
+Port of vpin_tpu/nn/homomorphic.py.  Reference:
+  conv   : src/cnn_networks/Server.py:268-323 (myConv2d, type==1)
+  rLC    : src/cnn_networks/Server.py:151-266 (rLCL/rLCR), a Freivalds check
+  pool   : src/cnn_networks/Server.py:358-429 (myAvgPool2d)
+  FC     : src/cnn_networks/Server.py:439-470 (FCLayer)
+  channel sums: src/LeNet/Server.py:545-551
 
 Points are PointW batches; sliding windows are gathers; every scalar
 multiplication of a batch is one K3 launch (the whole ladder) and every
@@ -17,8 +20,10 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..curve.host_ec import E2_ORDER
 from ..curve.weierstrass import E2, PointW, cat_points, scalars_to_bits, take
 from ..field.limbs import N_LIMBS
+from . import fixed_point
 from .prf import pf_vector
 from .trace import WitnessTrace
 
@@ -64,7 +69,7 @@ def _signed_const_mul(P: PointW, weights: np.ndarray) -> PointW:
     out = E2.scalar_mul_bits(P, scalars_to_bits(absw, n_bits))
     neg_mask = np.vectorize(lambda v: int(v) < 0, otypes=[bool])(w)
     if neg_mask.any():
-        out = E2.select(np.broadcast_to(neg_mask, out.batch_shape),
+        out = E2.select(np.array(np.broadcast_to(neg_mask, out.batch_shape)),
                         E2.neg(out), out)
     return out
 
@@ -140,6 +145,75 @@ class HomomorphicEngine:
         self.pending_checks.append(E2.eq(left, right))
         return PointW(*(c.reshape(OH, OW, N_LIMBS) for c in out))
 
+    def avgpool2d(self, P: PointW, kernel_size: int, stride: int) -> PointW:
+        """Homomorphic average pool: recorded window-sum adds (pixel-major),
+        then an unrecorded mult by fixed_point(1/k^2, 10 bits)
+        (reference: Server.py:358-429)."""
+        H, W = P.batch_shape
+        k = kernel_size
+        idx, OH, OW = _window_indices(H, W, k, 0, stride)
+        win = _gather(P, idx)                                  # (M, k^2)
+        winT = PointW(*(c.transpose(0, 1) for c in win))       # (k^2, M)
+        accs, final = self._prefix_adds(winT)
+        # record in pixel-major order: (M, k^2-1)
+        left = PointW(*(c[:-1].transpose(0, 1) for c in accs))
+        right = PointW(*(c[1:].transpose(0, 1) for c in winT))
+        self.trace.record_adds(left, right)
+        scale = fixed_point.pool_reciprocal_fixed(k)
+        out = _signed_const_mul(final, np.full((final.batch_shape[0],), scale,
+                                               dtype=object))
+        return PointW(*(c.reshape(OH, OW, N_LIMBS) for c in out))
+
+    def fc(self, P: PointW, weights: np.ndarray, bias: PointW,
+           key: bytes) -> PointW:
+        """Homomorphic fully-connected layer on a (n_in,) ciphertext half.
+
+        weights: (n_in, n_out) integer matrix; bias: (n_out,) encrypted
+        points.  Records n_out bias adds, then n_in rLC mults by the
+        rho-combined weight columns (exact integers, the reference's Decimal
+        path, Server.py:226-250), then n_in-1 rLC adds."""
+        n_in, n_out = weights.shape
+        if P.batch_shape != (n_in,):
+            raise ValueError(f"fc: {P.batch_shape} inputs for {n_in} rows")
+
+        # C[j] = sum_k W[k, j] * P[k]   (unrecorded)
+        Pb = PointW(*(c[:, None, :] for c in P))
+        terms = _signed_const_mul(Pb, weights)                 # (n_in, n_out)
+        C = E2.sum_points(terms, axis=0)                       # (n_out,)
+
+        # bias adds (recorded)
+        self.trace.record_adds(C, bias)
+        out = E2.add(C, bias)
+
+        # rLC left over C
+        rho = pf_vector(key, n_out, self.prf_trunc_bytes)
+        rho_bits = scalars_to_bits(rho, 8 * self.prf_trunc_bytes)
+        left = E2.sum_points(E2.scalar_mul_bits(C, rho_bits), axis=0)
+
+        # Combined column weights in exact integers.  Signed weights make
+        # them signed, so the witness is recorded sign-folded, (sign(s)*P,
+        # |s|): homomorphically the same and fit for the 128-bit mult
+        # gadget.  Where |s| still needs more than 128 bits it is reduced
+        # mod the E2 group order, and the prover takes the 253-bit gadget.
+        s = [sum(int(rho[j]) * int(weights[kk, j]) for j in range(n_out))
+             for kk in range(n_in)]
+        s_rec = []
+        neg = np.zeros((n_in,), dtype=bool)
+        for i, v in enumerate(s):
+            if abs(v) < (1 << 128):
+                neg[i] = v < 0
+                s_rec.append(abs(v))
+            else:
+                s_rec.append(v % E2_ORDER)
+        P_eff = E2.select(neg, E2.neg(P), P) if neg.any() else P
+        n_bits = max(1, max(v.bit_length() for v in s_rec))
+        temp = E2.scalar_mul_bits(P_eff, scalars_to_bits(s_rec, n_bits))
+        self.trace.record_mults(P_eff, s_rec)
+        right = self._record_chain(temp)
+
+        self.pending_checks.append(E2.eq(left, right))
+        return out
+
     def flush_checks(self):
         """Fetch all queued rLC equality checks; raise on a mismatch."""
         oks = [bool(c.all()) for c in self.pending_checks]
@@ -148,3 +222,11 @@ class HomomorphicEngine:
             bad = [i for i, ok in enumerate(oks) if not ok]
             raise RLCCheckError(f"rLC verification failed for checks {bad}")
         return True
+
+
+def channel_sum(channels: list) -> PointW:
+    """Elementwise point sum of a list of (H, W) ciphertext halves (LeNet's
+    conv2/conv3 input aggregation, reference LeNet/Server.py:545-551;
+    unrecorded)."""
+    stacked = PointW(*(torch.stack([c[i] for c in channels]) for i in range(3)))
+    return E2.sum_points(stacked, axis=0)
