@@ -27,9 +27,11 @@ Phases:
      table, an odd n and all-zero digits (its sums also equal to the
      elementwise fold and host_ristretto as encodings).  K5, the ristretto
      ladder, is off the main path: its own path (RistrettoGroup.msm_bits at
-     tests/test_msm.py's 8 x 253 bits and at 4,096 x 253) runs here with the
-     launch counts set to 0 before it, and its sums must equal the K4 table
-     MSM and, at 8 points, host_ristretto;
+     tests/test_msm.py's 8 x 253 bits, at 1,024 to 16,384 x 253)
+     runs here with the launch counts set to 0 before it, and its sums must
+     equal the K4 table MSM and, at 8 points, host_ristretto; then its
+     kernel, with 1 (one thread), 4 and 8 lanes a ladder, is held against
+     the plain version and host_ristretto at each shape and timed;
   4. replay the four golden fixtures of crosscheck/gen_golden.py (2 adds,
      2 mults; transparent and with the SPARK eval proof) with the witness
      and every table on the CUDA route (every crossover lowered to 0): both
@@ -105,9 +107,11 @@ MONT_PER_ED_ADD = 9
 # addition (RistrettoGroup.add and sum_points; the MSMs take ed_table and
 # ed_msm).  Both run on RistrettoGroup.msm_bits, driven in phase 3.
 OWN_PATH = ("ed_ladder", "ed_add")
-# K5's shapes: tests/test_msm.py's ladder MSM, and a batch that fills part
-# of the card
-LADDER_SHAPES = ((8, 253), (4096, 253))
+# K5's shapes: tests/test_msm.py's ladder MSM, a middle batch, and batches
+# that fill part of the card or all of it, on each side of the lane choices
+# of cuda_edwards.ed_ladder_lanes
+LADDER_SHAPES = ((8, 253), (1024, 253), (4096, 253), (8192, 253),
+                 (16384, 253))
 # K4's largest batch on the main path: the first fold of the SPARK comb_ops
 # commitment of the 18-mult proof (2^21 entries in 1,024 Hyrax rows, summed
 # through a digit table 4,096 wide), 1,024 rows x 2,048 pairs
@@ -869,8 +873,9 @@ def check_ed_msm(torch, dev, rate):
 def check_ed_ladder(torch, dev, rate):
     """K5: its path (msm_bits: the ladders, then sum_points' elementwise K4
     additions) with the counts from 0, the sums against the K4 table MSM and
-    host_ristretto, then the kernel against its plain version at each shape.
-    Returns ({n: row}, {entry: launches on that path})."""
+    host_ristretto, then at each shape every lane count against the plain
+    version and its first 8 ladders against host_ristretto.  Returns ({n: row of the lanes the wrapper takes},
+    {entry: launches on that path})."""
     from vpin_tpu_torch import kernels
     from vpin_tpu_torch.curve import cuda_edwards, host_ristretto as H
     from vpin_tpu_torch.curve.msm import host_digits, msm_oneshot
@@ -911,28 +916,41 @@ def check_ed_ladder(torch, dev, rate):
             require(enc == [H.msm(ks, hp).encode()],
                     "msm_bits 8: != host_ristretto")
         words = to_tensor(pack_bits(rows), dev)
-        got = cuda_edwards.ed_ladder(R, tuple(P), words, n_bits, 1, n)
         t = time.perf_counter()
         want = cuda_edwards.ed_ladder_plain(R, tuple(P), words, n_bits, 1, n)
         torch.cuda.synchronize()
         plain = (time.perf_counter() - t) * 1e3
-        require(all(torch.equal(g, w) for g, w in zip(got, want)),
-                f"ed_ladder {n} x {n_bits}: kernel != plain")
-        head = R.encode_bytes(PointE(*(c[:8] for c in got)))
-        require(head == [p.mul(k).encode() for p, k in zip(hp, ks)],
-                f"ed_ladder {n} x {n_bits}: kernel != host_ristretto")
-        ms = kernel_ms(torch, lambda: cuda_edwards.ed_ladder(
-            R, tuple(P), words, n_bits, 1, n), launches=3, repeats=3)
+        host = [p.mul(k).encode() for p, k in zip(hp, ks)]
+        err = 0
+
+        def check(lanes, got):
+            nonlocal err
+            torch.cuda.synchronize()
+            require(all(torch.equal(g, w) for g, w in zip(got, want)),
+                    f"ed_ladder {n} x {n_bits} lanes={lanes}: kernel != plain")
+            require(R.encode_bytes(PointE(*(c[:8] for c in got))) == host,
+                    f"ed_ladder {n} x {n_bits} lanes={lanes}: kernel != "
+                    "host_ristretto")
+            err = max(err, max_abs_err(torch, got, want))
+
+        ms = lanes_ms(torch, lambda g: cuda_edwards.ed_ladder(
+            R, tuple(P), words, n_bits, 1, n, _lanes=g),
+            cuda_edwards.LADDER_LANES, check, launches=3, repeats=3)
         # the additions these bits need: one per set bit, one doubling per
         # bit but the last
         adds = int(rows.sum()) + n * (n_bits - 1)
         bnd, by = bound_ms(adds * MONT_PER_ED_ADD * MUL32_PER_MONT_P,
                            256 * n + words.numel() * 4, rate)
-        log(f"K5 ed_ladder {n} x {n_bits} bits ({adds} additions): bit-equal "
-            f"to plain and host_ristretto, msm_bits == table MSM; kernel "
-            f"{ms:.4f} ms, plain {plain:.1f} ms, bound {bnd:.4f} ms ({by})")
-        out[n] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
-                      max_abs_err=max_abs_err(torch, got, want))
+        pick = cuda_edwards.ed_ladder_lanes(n)
+        log(f"K5 ed_ladder {n} x {n_bits} bits ({adds} additions): every "
+            f"lane count bit-equal to plain and host_ristretto, msm_bits == "
+            f"table MSM; kernel "
+            + ", ".join(f"{'1 thread' if g == 1 else f'{g} lanes'} "
+                        f"{t:.4f} ms" for g, t in ms.items())
+            + f" (the wrapper takes {pick}); plain {plain:.1f} ms, bound "
+            f"{bnd:.4f} ms ({by}), {100 * bnd / ms[pick]:.2f}% of it")
+        out[n] = dict(ms=ms[pick], plain_ms=plain, bound_ms=bnd, bound_by=by,
+                      max_abs_err=err)
     return out, launches
 
 
@@ -1472,7 +1490,7 @@ def main() -> int:
         rows["e2_scalar_mul"]["max_abs_err"] = max(
             rows["e2_scalar_mul"]["max_abs_err"], row["max_abs_err"])
     k5_rows, own_path = check_ed_ladder(torch, dev, mul32_rate)
-    rows["ed_ladder"] = k5_rows[LADDER_SHAPES[-1][0]]
+    rows["ed_ladder"] = k5_rows[4096]          # the kernels line's K5 row
     log("host work: " + ", ".join(f"{k} {v:.2f} ms"
                                   for k, v in host_work_ms().items()))
     phase_done(3)

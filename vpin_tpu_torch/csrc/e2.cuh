@@ -1,6 +1,7 @@
 // Complete projective addition on curve E2 (y^2 = x^3 + a x + b over F_l):
 // for one CUDA thread, every coordinate in registers (e2_add), and shared by
-// a group of lanes of one warp (e2_run, below).
+// a group of lanes of one warp (e2_run, below, which also runs K5's
+// ristretto255 schedule, ed_sched.cuh, with the product mod p).
 #pragma once
 
 #include "field.cuh"
@@ -117,7 +118,10 @@ __device__ __forceinline__ void e2_add(Pt& r, const Pt& p, const Pt& q, const Cu
 // of a warp runs every stage and round (the round count is the warp's
 // largest, so lanes of other groups or past the end idle through it) and
 // meets the others at a full-warp __syncwarp after each stage: no lane
-// leaves early, so the full mask is every group's.
+// leaves early, so the full mask is every group's.  The runner is a
+// template on the field product (FeMul, the default, for K2 and K3 mod l;
+// ed_ladder.cu's FeMulP for K5 mod p) and on the program's sizes
+// (GroupProg).
 
 #include "e2_sched.cuh"
 
@@ -127,11 +131,14 @@ static_assert(E2_NSLOT - E2_P0 == E2_NTEMP, "E2_NTEMP counts the working slots")
 static_assert(E2_SLOT_WORDS % 4 == 0 && E2_SLOT_WORDS >= VPIN_NL,
               "a slot holds 8 limbs at a 16-byte boundary");
 
-struct __align__(16) E2Prog {
-  uint32_t op[E2_MAXOPS + 1];   // kind | dst << 8 | a << 16 | b << 24, element slots
-  uint16_t start[E2_MODES][E2_NSTAGE][E2_MAXG + 1];   // lane l: [start[l], start[l+1])
-  uint8_t rounds[E2_MODES][E2_NSTAGE];                // products on the busiest lane
+template <int kOps, int kModes, int kStages>
+struct __align__(16) GroupProg {
+  static constexpr int kNStage = kStages;
+  uint32_t op[kOps + 1];   // kind | dst << 8 | a << 16 | b << 24, element slots
+  uint16_t start[kModes][kStages][E2_MAXG + 1];   // lane l: [start[l], start[l+1])
+  uint8_t rounds[kModes][kStages];                // products on the busiest lane
 };
+using E2Prog = GroupProg<E2_MAXOPS, E2_MODES, E2_NSTAGE>;
 static_assert(sizeof(E2Prog) == (4 * (E2_MAXOPS + 1) + 2 * E2_MODES * E2_NSTAGE * (E2_MAXG + 1) +
                                  E2_MODES * E2_NSTAGE + 15) / 16 * 16,
               "E2Prog is laid out as e2_sched.py packs it");
@@ -156,12 +163,22 @@ __device__ __forceinline__ void fe_add_or_sub(uint32_t r[VPIN_NL], const uint32_
   }
 }
 
+// The generic Montgomery product (any N; K2 and K3: l), as a runner's
+// field product.
+struct FeMul {
+  static __device__ __forceinline__ void mul(uint32_t r[VPIN_NL], const uint32_t a[VPIN_NL],
+                                             const uint32_t b[VPIN_NL], const FieldConsts& c) {
+    fe_mul(r, a, b, c);
+  }
+};
+
 // One row of a program: slots[dst] = slots[a] op slots[b].
+template <class Mul>
 __device__ __forceinline__ void e2_product(uint32_t op, uint32_t* slots, const FieldConsts& c) {
   uint32_t x[VPIN_NL], y[VPIN_NL];
   fe_load(x, slots + ((op >> 16) & 0xff) * E2_SLOT_WORDS);
   fe_load(y, slots + (op >> 24) * E2_SLOT_WORDS);
-  fe_mul(x, x, y, c);
+  Mul::mul(x, x, y, c);
   fe_store(slots + ((op >> 8) & 0xff) * E2_SLOT_WORDS, x);
 }
 
@@ -174,13 +191,14 @@ __device__ __forceinline__ void e2_linear(uint32_t op, uint32_t* slots, const Fi
 }
 
 // Run mode `mode` of program p (in shared memory) on the element whose
-// slots start at `slots`, as lane `lane` of its group.  Every lane of the
-// warp calls it with the same p.  Each row's word is read one row ahead.
-template <int G>
-__device__ __forceinline__ void e2_run(const E2Prog& p, int mode, int lane, uint32_t* slots,
+// slots start at `slots`, as lane `lane` of its group, each product by
+// Mul::mul.  Every lane of the warp calls it with the same p.  Each row's
+// word is read one row ahead.
+template <int G, class Mul = FeMul, class Prog>
+__device__ __forceinline__ void e2_run(const Prog& p, int mode, int lane, uint32_t* slots,
                                        const FieldConsts& c) {
 #pragma unroll 1
-  for (int s = 0; s < E2_NSTAGE; ++s) {
+  for (int s = 0; s < Prog::kNStage; ++s) {
     int i = p.start[mode][s][lane];
     const int end = p.start[mode][s][lane + 1];
     const unsigned rounds = __reduce_max_sync(0xffffffffu, p.rounds[mode][s]);
@@ -197,7 +215,7 @@ __device__ __forceinline__ void e2_run(const E2Prog& p, int mode, int lane, uint
       __syncwarp();
       if (i < end) {
         const uint32_t next = p.op[++i];
-        e2_product(op, slots, c);
+        e2_product<Mul>(op, slots, c);
         op = next;
       }
     }
@@ -212,8 +230,9 @@ __device__ __forceinline__ void e2_run(const E2Prog& p, int mode, int lane, uint
 }
 
 // The block's copy of its program.
-__device__ __forceinline__ void e2_copy_prog(E2Prog& dst, const E2Prog* __restrict__ src) {
+template <class Prog>
+__device__ __forceinline__ void e2_copy_prog(Prog& dst, const Prog* __restrict__ src) {
   const uint4* s = reinterpret_cast<const uint4*>(src);
   uint4* d = reinterpret_cast<uint4*>(&dst);
-  for (int i = threadIdx.x; i < (int)(sizeof(E2Prog) / 16); i += blockDim.x) d[i] = __ldg(s + i);
+  for (int i = threadIdx.x; i < (int)(sizeof(Prog) / 16); i += blockDim.x) d[i] = __ldg(s + i);
 }

@@ -12,6 +12,11 @@ yardsticks on the card and what CPU tensors run.
 
 Points travel as (x, y, z, t) tuples of int32 limb tensors (..., 8) in
 Montgomery form, with the identity (0 : 1 : 1 : 0).
+
+K5 gives each ladder to a group of lanes of one warp, which runs the stage
+schedule of csrc/ed_sched.cuh on K2 and K3's group runner (csrc/e2.cuh,
+curve/e2_sched.py); ``ed_ladder_lanes`` says how many for a batch, from the
+times measured on the H100 (PERF.md).
 """
 
 from __future__ import annotations
@@ -21,7 +26,20 @@ import torch
 from .. import kernels
 from ..field.cuda_mont import mont_mul64
 from ..field.limbs import N_LIMBS, add_mod, narrow, sub_mod, widen
+from . import e2_sched
 from .cuda_ec import _check_bits
+
+
+#: lanes a ladder K5 offers: 1 (one thread a ladder), 4 or 8 (a group)
+LADDER_LANES = (1, 4, 8)
+
+
+def ed_ladder_lanes(n: int) -> int:
+    """Lanes a ladder for K5 on n ladders: 8, 4 from 8,192 ladders and 1
+    (one thread a ladder) from 16,384, the fastest at each batch measured
+    on the H100 (PERF.md): once the card fills, lanes that idle through a
+    round cost more than the chain of products."""
+    return 8 if n < 8192 else 4 if n < 16384 else 1
 
 
 # ----------------------------------------------------------------------
@@ -250,23 +268,32 @@ def ed_msm_plain(group, table, digits, chunk: int = MSM_CHUNK):
 # K5: double-and-add ladder
 # ----------------------------------------------------------------------
 
-def ed_ladder(group, P, words, n_bits: int, inner: int, nrows: int):
+def ed_ladder(group, P, words, n_bits: int, inner: int, nrows: int,
+              _lanes=None):
     """[k_i] P_i for a flat batch of n points (each coordinate (n, 8)).
     ``words`` (nrows, W) int32 holds each scalar's bits LSB-first in 32-bit
-    words; point i takes row (i // inner) % nrows."""
+    words; point i takes row (i // inner) % nrows.  ``_lanes``, a hook for
+    measuring the choice ``ed_ladder_lanes`` makes: the kernel's lanes a
+    ladder, one of LADDER_LANES."""
     dev = _flat_points("ed_ladder", P)
     n = P[0].shape[0]
     _check_bits("ed_ladder", words, n_bits, nrows, inner, dev)
+    lanes = ed_ladder_lanes(n) if _lanes is None else _lanes
+    if lanes not in LADDER_LANES:
+        raise ValueError(f"ed_ladder: no kernel for {lanes} lanes a ladder")
     if dev.type == "cpu":
         return ed_ladder_plain(group, P, words, n_bits, inner, nrows)
     ins = [kernels.kernel_operand(t, t.shape) for t in P]
     words = words.contiguous()
     outs = [torch.empty_like(ins[0]) for _ in range(4)]
+    prog = e2_sched.program("ed_ladder", lanes, dev).data_ptr() \
+        if lanes > 1 else None
     if n:
         kernels.launch("ed_ladder", dev,
                        *(t.data_ptr() for t in ins), words.data_ptr(),
                        *(t.data_ptr() for t in outs), n, n_bits,
-                       words.shape[1], inner, nrows, group.kernel_consts)
+                       words.shape[1], inner, nrows, group.kernel_consts,
+                       lanes, prog)
     return tuple(outs)
 
 

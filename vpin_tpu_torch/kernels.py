@@ -60,7 +60,8 @@ ENTRIES = {
     "ed_msm": ("ed_add", [_P] * 4 + [_I64, _P, _I32, _I64] + [_P] * 8
                + [_WORDS]),
     "ed_ladder": ("ed_ladder",
-                  [_P] * 9 + [_I64, _I32, _I32, _I64, _I64, _WORDS]),
+                  [_P] * 9 + [_I64, _I32, _I32, _I64, _I64, _WORDS, _I32,
+                              _P]),
 }
 
 LAUNCHES = {name: 0 for name in ENTRIES}
