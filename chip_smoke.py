@@ -70,9 +70,28 @@ Phases:
      stacked (twice the candidates).  Above 2^18 elements the plain
      versions run in slices of 2^18, whose int64 intermediates would not
      fit on the card at once;
+  8. (run after phase 6, before phase 7) this slice's paths, each entry's
+     launch counts set to 0 before each and read after it: the stock Spartan
+     SNARK on produce_synthetic_r1cs(2^16, 2^16, 10, seed=1) (encode, prove
+     with tape seed 5, verify on the host, its size equal to its bincode
+     length and to vpin_tpu's recorded 84,840 B, a tampered inst_evals
+     refused) and the NIZK on the same instance (verified on the host, its
+     bincode round trip exact), where every K4 shape phase 3 does not hold
+     and the largest K1 batch is held against its plain version on the
+     path's own operands and timed; checkpoints: phase
+     5's 18-mult trace proven (transparent) in a child process with a
+     checkpoint directory, SIGKILLed once its first sc1 snapshot is on disk,
+     again after sc2, each resumed here to bytes equal to the uninterrupted
+     proof, and another witness's directory and a checkpointed proof without
+     a tape seed refused; the two-process conv: server_main in a thread on
+     the card (seeded rLC keys, export directory) and `cli client-conv
+     --size 32` as its own process over a free localhost port, with 18/16
+     counts, the exported trace equal to the in-process conv on the same
+     ciphertext and keys and to host_ec, and prove_tag_dir's proof bytes
+     equal to prove_trace's;
   7. each entry's launch count on the main path, mont_pow and ed_msm among
      them (K5's and the elementwise K4 addition's on their own path,
-     msm_bits, in phase 3), and on phase 6's paths.
+     msm_bits, in phase 3), and on the paths of phases 6 and 8.
 Each phase prints its wall time.  The line before the last is a JSON object
 with every kernel's numbers (``launches``: phase 5's main path;
 ``path_launches``: each path's); the last is {"ok": true, "device": {...}}.  Any failure raises: the script then
@@ -87,6 +106,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -155,7 +175,19 @@ PATH_ENTRIES = {
               "ed_table", "ed_msm"),
     "lenet": ("mont_mul", "mont_pow", "e2_add", "e2_add_wide",
               "e2_scalar_mul"),
+    "stock": ("mont_mul", "ed_table", "ed_msm"),
+    "nizk": ("mont_mul", "ed_table", "ed_msm"),
+    "ckpt": ("mont_mul", "mont_pow"),
+    "transport": ("mont_mul", "mont_pow", "e2_add", "e2_scalar_mul"),
 }
+# phase 8: the synthetic stock SNARK and NIZK at the repo's one recorded
+# point, produce_synthetic_r1cs(2^16, 2^16, 10, seed=1), tape seed 5, whose
+# proof vpin_tpu measured at 84,840 B (artifacts/SYNTHETIC_SNARK.md); the
+# two-process conv's client seed
+STOCK_K = 1 << 16
+STOCK_BYTES = 84840
+TRANSPORT_SEED = 7
+_ROOT = Path(__file__).resolve().parent
 ADD_PROOF_BYTES = 6992
 MULT_PROOF_BYTES = 19920
 ADD_FULL_PROOF_BYTES = 27240
@@ -1418,6 +1450,416 @@ def run_lenet(torch, dev, table):
     return res
 
 
+# ----------------------------------------------------------------------
+# phase 8: the stock SNARK and NIZK, checkpoint resume, the two-process conv
+# ----------------------------------------------------------------------
+
+class ShapeLog:
+    """Records, while active, the shapes the path gives K4's ed_table and
+    ed_msm and K1's mont_mul, with each shape's first operands (cloned) and
+    its calls; the wrappers underneath still count their launches."""
+
+    def __init__(self):
+        from vpin_tpu_torch.curve import cuda_edwards
+        from vpin_tpu_torch.field import prime_field
+        self.mods = {"ed_table": cuda_edwards, "ed_msm": cuda_edwards,
+                     "mont_mul": prime_field}
+        self.calls, self.first = {}, {}
+
+    def _wrap(self, name, fn):
+        def wrapper(*args):
+            if name == "ed_table":
+                key = (name, args[1][0].shape[0])
+            elif name == "ed_msm":
+                d = args[2]
+                key = (name,) + tuple(d.shape[:2]) + (args[1][0].shape[1],)
+            else:
+                key = (name, args[2].name,
+                       max(args[0].numel(), args[1].numel()) // 8)
+            self.calls[key] = self.calls.get(key, 0) + 1
+            if key not in self.first:
+                self.first[key] = tuple(
+                    tuple(c.clone() for c in a) if isinstance(a, tuple)
+                    else a.clone() if hasattr(a, "clone") else a
+                    for a in args)
+            return fn(*args)
+        return wrapper
+
+    def __enter__(self):
+        self.saved = {k: getattr(m, k) for k, m in self.mods.items()}
+        for k, m in self.mods.items():
+            setattr(m, k, self._wrap(k, self.saved[k]))
+        return self
+
+    def __exit__(self, *exc):
+        for k, m in self.mods.items():
+            setattr(m, k, self.saved[k])
+
+
+def hold_new_shapes(torch, dev, rate, shapes: ShapeLog, held: set) -> dict:
+    """Each K4 shape of the stock path outside ``held`` (phase 3's) and its
+    largest mont_mul batch, on the path's own operands: kernel against
+    plain, timed, with its bound and its calls on the path.  Returns the
+    largest error per entry."""
+    from vpin_tpu_torch.curve import cuda_edwards as CE
+    from vpin_tpu_torch.curve.ristretto import RISTRETTO as R
+    from vpin_tpu_torch.field import FQ
+    from vpin_tpu_torch.field.cuda_mont import mont_mul, mont_mul_plain
+    err = {"ed_table": 0, "ed_msm": 0, "mont_mul": 0}
+    muls = [k for k in shapes.calls if k[0] == "mont_mul" and k[1] == FQ.name]
+    big = max(muls, key=lambda k: k[2])
+    for key in sorted(shapes.calls):
+        name = key[0]
+        if key in held or (name == "mont_mul" and key != big):
+            continue
+        args = shapes.first[key]
+        if name == "ed_table":
+            fn = lambda: CE.ed_table(R, args[1])                  # noqa: E731
+            plain = lambda: CE.ed_table_plain(R, args[1])         # noqa: E731
+            m = key[1]
+            bnd, by = bound_ms(255 * m * MONT_PER_ED_ADD * MUL32_PER_MONT_P,
+                               128 * m + 256 * 128 * m, rate)
+        elif name == "ed_msm":
+            fn = lambda: CE.ed_msm(R, args[1], args[2])           # noqa: E731
+            plain = lambda: CE.ed_msm_plain(R, args[1], args[2])  # noqa: E731
+            bnd, by = msm_bound(torch, args[2], rate)
+        else:
+            fn = lambda: mont_mul(args[0], args[1], FQ)           # noqa: E731
+            n = key[2]
+            a2, b2 = (x.reshape(-1, 8) for x in
+                      torch.broadcast_tensors(args[0], args[1]))
+            plain = lambda: chunked(                              # noqa: E731
+                torch, lambda x, y: mont_mul_plain(x, y, FQ), n, a2, b2)
+            bnd, by = bound_ms(MUL32_PER_MONT * n, 96 * n, rate)
+        got = fn()
+        want, plain_ms = timed_plain(torch, plain)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        require(all(torch.equal(g, w.reshape(g.shape))
+                    for g, w in zip(got, want)),
+                f"{key}: kernel != plain on the stock path's operands")
+        err[name] = max(err[name], max_abs_err(
+            torch, got, [w.reshape(g.shape) for g, w in zip(got, want)]))
+        del got, want
+        ms = kernel_ms(torch, fn, launches=3 if name != "mont_mul" else 20,
+                       repeats=3)
+        log(f"stock path shape {key}: {shapes.calls[key]} calls; bit-equal "
+            f"to plain on the path's operands; kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.1f} ms, bound {bnd:.4f} ms ({by})")
+    return err
+
+
+def fresh_generators() -> None:
+    """Drop the process's cached Pedersen generators and their digit tables,
+    so that the next path builds its own, as in a process of its own."""
+    from vpin_tpu_torch.commit.pedersen import MultiCommitGens
+    from vpin_tpu_torch.nizk.sigma import dot_product_proof_gens
+    MultiCommitGens.new.cache_clear()
+    dot_product_proof_gens.cache_clear()
+
+
+def run_stock(torch, dev, kernels, rate):
+    """The stock SNARK at 2^16 (the repo's recorded synthetic point) and the
+    NIZK on the same instance, each path's launch counts from 0, verified
+    on the host; the SNARK's size against vpin_tpu's recorded 84,840 B
+    (artifacts/SYNTHETIC_SNARK.md, same seeds), a tampered claim refused and
+    the NIZK's bincode round trip exact."""
+    from vpin_tpu_torch.snark import (
+        NIZK, SNARK, NIZKGens, SNARKGens, produce_synthetic_r1cs, snark_encode)
+    from vpin_tpu_torch.transcript import Transcript
+    from vpin_tpu_torch.utils.bincode import (
+        deserialize_nizk, deserialize_snark, serialize_nizk, serialize_snark)
+    n = STOCK_K
+    paths = {}
+    fresh_generators()
+    for name in kernels.LAUNCHES:
+        kernels.LAUNCHES[name] = 0
+    with ShapeLog() as shapes:
+        t = time.perf_counter()
+        inst, vars_ints, inputs = produce_synthetic_r1cs(n, n, 10, seed=1,
+                                                         device=dev)
+        gen_ms = (time.perf_counter() - t) * 1e3
+        gens = SNARKGens(inst.num_cons, inst.num_vars, inst.num_inputs,
+                         max(m.nnz for m in (inst.A, inst.B, inst.C)))
+        t = time.perf_counter()
+        comm, decomm = snark_encode(inst, gens)
+        torch.cuda.synchronize()
+        encode_ms = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        proof = SNARK.prove(inst, comm, decomm, vars_ints, inputs, gens,
+                            Transcript(b"snark_example"), tape_seed=5)
+        torch.cuda.synchronize()
+        prove_ms = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        ok = proof.verify(comm, inst, inputs, Transcript(b"snark_example"),
+                          gens)
+        verify_ms = (time.perf_counter() - t) * 1e3
+    launched = dict(kernels.LAUNCHES)
+    blob = serialize_snark(proof)
+    require(ok, "the 2^16 stock SNARK did not verify")
+    require(proof.size() == len(blob) == STOCK_BYTES,
+            f"stock SNARK {proof.size()} B, bincode {len(blob)} B, want "
+            f"{STOCK_BYTES}")
+    back = deserialize_snark(blob)
+    bad = SNARK(back.r1cs_sat_proof, ((back.inst_evals[0] + 1) % (2**252),)
+                + tuple(back.inst_evals[1:]), back.r1cs_eval_proof)
+    require(bad.verify(comm, inst, inputs, Transcript(b"snark_example"),
+                       gens) is False, "a tampered inst_evals verified")
+    nnz = inst.A.nnz + inst.B.nnz + inst.C.nnz
+    log(f"stock SNARK 2^{n.bit_length() - 1} ({nnz} nonzeros): gen "
+        f"{gen_ms:.0f} ms, encode {encode_ms:.0f} ms, prove {prove_ms:.0f} ms, "
+        f"verify {verify_ms:.0f} ms (host); {len(blob)} B = its bincode "
+        f"length; tampered inst_evals refused")
+    paths["stock"] = path_launches(kernels, "stock", launched)
+
+    fresh_generators()
+    for name in kernels.LAUNCHES:
+        kernels.LAUNCHES[name] = 0
+    ngens = NIZKGens(inst.num_cons, inst.num_vars, inst.num_inputs)
+    t = time.perf_counter()
+    nproof = NIZK.prove(inst, vars_ints, inputs, ngens,
+                        Transcript(b"nizk_example"), tape_seed=5)
+    torch.cuda.synchronize()
+    nprove_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    nok = nproof.verify(inst, inputs, Transcript(b"nizk_example"), ngens)
+    nverify_ms = (time.perf_counter() - t) * 1e3
+    launched = dict(kernels.LAUNCHES)
+    nblob = serialize_nizk(nproof)
+    require(nok, "the 2^16 NIZK did not verify")
+    require(serialize_nizk(deserialize_nizk(nblob)) == nblob,
+            "the NIZK's bincode round trip changed its bytes")
+    log(f"NIZK 2^{n.bit_length() - 1}: prove {nprove_ms:.0f} ms, verify "
+        f"{nverify_ms:.0f} ms (host); {len(nblob)} B, bincode round trip "
+        f"exact")
+    paths["nizk"] = path_launches(kernels, "nizk", launched)
+    log("stock path shapes (calls): " + ", ".join(
+        f"{k} x{v}" for k, v in sorted(shapes.calls.items())
+        if k[0] != "mont_mul" or v > 50 or k[2] >= 1 << 16))
+    held = {("ed_table", BULLET_N), ("ed_table", COMB_N),
+            ("ed_table", COMB_WIDTH), ("ed_msm", 1, BULLET_N, BULLET_N),
+            ("ed_msm", COMB_ROWS, COMB_N, COMB_WIDTH),
+            ("mont_mul", "Fl", 1 << 16), ("mont_mul", "Fl", MONT_LARGE)}
+    err = hold_new_shapes(torch, dev, rate, shapes, held)
+    return paths, err
+
+
+CKPT_CHILD = """
+import json, sys
+from vpin_tpu_torch.runner.proof_runner import prove_point_mult
+cols = [[int(v) for v in c] for c in json.load(open(sys.argv[1]))]
+prove_point_mult(*cols, tape_seed=int(sys.argv[3]), quiet=True,
+                 device="cuda", full_snark=False, ckpt_dir=sys.argv[2])
+"""
+
+
+def kill_child_at(d: str, args_file: str, key: str):
+    """Start a child process proving the mult trace with checkpoints in
+    ``d``; SIGKILL it as soon as the snapshot ``key`` is on disk.  Returns
+    (seconds to the kill, the snapshot's round count / rounds)."""
+    import os
+    import pickle
+    import signal
+    snap = f"{d}/{key}.pkl"
+    t = time.perf_counter()
+    child = subprocess.Popen(
+        [sys.executable, "-c", CKPT_CHILD, args_file, d,
+         str(PROOF_TAPE_SEED)], cwd=str(_ROOT),
+        env=dict(os.environ, PYTHONPATH=str(_ROOT)),
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+    try:
+        while not os.path.exists(snap):
+            if child.poll() is not None:
+                raise SmokeError(f"the checkpoint child ended "
+                                 f"({child.returncode}) before {key}: "
+                                 f"{child.stderr.read().decode()[-2000:]}")
+            require(time.perf_counter() - t < 300,
+                    f"no {key} snapshot within 300 s")
+            time.sleep(0.005)
+        child.send_signal(signal.SIGKILL)
+    finally:
+        child.kill()
+        child.wait()
+    require(child.returncode == -signal.SIGKILL,
+            f"the checkpoint child ended with {child.returncode}, not by the "
+            f"kill")
+    with open(snap, "rb") as fh:
+        got = pickle.load(fh)
+    return time.perf_counter() - t, (got["j"], got["num_rounds"])
+
+
+def run_ckpt(torch, dev, kernels, fin):
+    """The 18 mults of phase 5's warm conv trace, transparent, tape seed
+    PROOF_TAPE_SEED: the uninterrupted proof's bytes, then a child process
+    SIGKILLed after its first sc1 snapshot and another after its first sc2
+    snapshot, each resumed here to the same bytes (the resumes' launches are
+    the path's); a directory made for another witness and a checkpointed
+    proof without a tape seed refused."""
+    import tempfile
+    from vpin_tpu_torch.runner import proof_runner as pr
+    _, mult = pr.trace_args(fin)
+    t = time.perf_counter()
+    pr.RECORD = []
+    try:
+        pr.prove_point_mult(*mult, tape_seed=PROOF_TAPE_SEED, quiet=True,
+                            device=dev, full_snark=False)
+        want = pr.RECORD[0][1]
+    finally:
+        pr.RECORD = None
+    plain_ms = (time.perf_counter() - t) * 1e3
+    launched = {k: 0 for k in kernels.LAUNCHES}
+    with tempfile.TemporaryDirectory() as tmp:
+        args_file = f"{tmp}/mult.json"
+        with open(args_file, "w") as fh:
+            json.dump([[str(v) for v in col] for col in mult], fh)
+        for key in ("sc1", "sc2"):
+            d = f"{tmp}/ck_{key}"
+            kill_s, (j, rounds) = kill_child_at(d, args_file, key)
+            before = dict(kernels.LAUNCHES)
+            t = time.perf_counter()
+            pr.RECORD = []
+            try:
+                pr.prove_point_mult(*mult, tape_seed=PROOF_TAPE_SEED,
+                                    quiet=True, device=dev, full_snark=False,
+                                    ckpt_dir=d)
+                got = pr.RECORD[0][1]
+            finally:
+                pr.RECORD = None
+            resume_ms = (time.perf_counter() - t) * 1e3
+            for k in launched:
+                launched[k] += kernels.LAUNCHES[k] - before[k]
+            require(got == want, f"the proof resumed after {key} differs "
+                    f"from the uninterrupted one")
+            log(f"checkpoint: child SIGKILLed {kill_s:.1f} s after its start,"
+                f" its {key} snapshot at round {j} of {rounds}; resumed here "
+                f"in {resume_ms:.0f} ms (uninterrupted {plain_ms:.0f} ms), "
+                f"{len(got)} B byte-equal, verified")
+        other = list(mult[0])
+        other[0] += 1
+        try:
+            pr._make_ckpt(f"{tmp}/ck_sc1", "point_mult", len(other),
+                          PROOF_TAPE_SEED, n_bits=128,
+                          witness_digest=pr._witness_digest(other, *mult[1:]))
+            refused = False
+        except ValueError:
+            refused = True
+        require(refused, "a checkpoint dir of another witness was accepted")
+        try:
+            pr.prove_point_mult(*mult, tape_seed=None, quiet=True,
+                                device=dev, full_snark=False,
+                                ckpt_dir=f"{tmp}/ck_none")
+            refused = False
+        except ValueError:
+            refused = True
+        require(refused, "a checkpointed proof without a tape seed ran")
+    log("checkpoint: another witness's directory and a proof without a tape "
+        "seed refused (ValueError)")
+    return launched
+
+
+def run_transport(torch, dev, kernels):
+    """server_main in a thread on the card with seeded rLC keys and an
+    export directory; `cli client-conv --size 32 --seed S` as its own
+    process on a free localhost port.  The counts, the exported trace equal
+    to the in-process conv on the same ciphertext and keys and to host_ec,
+    and prove_tag_dir's proof bytes equal to prove_trace's."""
+    import contextlib
+    import io
+    import os
+    import socket
+    import tempfile
+    import threading
+    from vpin_tpu_torch.nn.elgamal import KeyPair
+    from vpin_tpu_torch.nn.host_check import check_conv_trace
+    from vpin_tpu_torch.nn.models import CONV_FILTERS, run_conv_workload
+    from vpin_tpu_torch.nn.socket_runner import server_main
+    from vpin_tpu_torch.runner import proof_runner as pr
+    from vpin_tpu_torch.runner.cli import _make_image
+    from vpin_tpu_torch.utils import timer
+    seed = TRANSPORT_SEED
+
+    def keys():
+        rng = random.Random(seed + 2)
+        return lambda: bytes(rng.randrange(256) for _ in range(32))
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        out, err = {}, []
+        for name in kernels.LAUNCHES:
+            kernels.LAUNCHES[name] = 0
+        timer.RECORD = []
+
+        def serve():
+            try:
+                out.update(server_main(port, export_dir=f"{tmp}/x",
+                                       device=dev, key_source=keys()))
+            except Exception as e:
+                err.append(e)
+
+        th = threading.Thread(target=serve, daemon=True)
+        th.start()
+        t = time.perf_counter()
+        client = subprocess.run(
+            [sys.executable, "-m", "vpin_tpu_torch.runner.cli", "client-conv",
+             "--port", str(port), "--size", str(SIZE), "--seed", str(seed)],
+            cwd=str(_ROOT), env=dict(os.environ, PYTHONPATH=str(_ROOT)),
+            capture_output=True, text=True, timeout=600)
+        client_s = time.perf_counter() - t
+        th.join(timeout=120)
+        record, timer.RECORD = timer.RECORD, None
+        launched = dict(kernels.LAUNCHES)
+        require(client.returncode == 0,
+                f"client-conv failed: {client.stderr[-3000:]}")
+        require(not th.is_alive() and not err, f"server_main failed: {err}")
+        require(out == {"num_mults": 18, "num_adds": 16}
+                and "{'num_mults': 18, 'num_adds': 16}" in client.stdout,
+                f"two-process counts: server {out}, client "
+                f"{client.stdout[-500:]}")
+        path_launches(kernels, "transport", launched)
+        serve_ms = sum(dt for _, label, dt, _ in record
+                       if label == "serve_conv") * 1e3
+        client_line = [ln for ln in client.stdout.splitlines()
+                       if "wall time" in ln]
+
+        img = _make_image(SIZE, seed)
+        key = KeyPair.generate(random.Random(seed), device=dev)
+        ref = run_conv_workload(img, FILTER, key, random.Random(seed + 1),
+                                key_source=keys())
+        fin = ref.trace.finalize()
+        add, mult = pr.trace_args(fin)
+        require(tuple(pr.load_point_add_json(f"{tmp}/x")) == add
+                and tuple(pr.load_point_mult_json(f"{tmp}/x")) == mult,
+                "the exported trace differs from the in-process conv's")
+        check_conv_trace(fin, CONV_FILTERS[FILTER])
+        proofs = {}
+        for label, prove in (
+                ("tag_dir", lambda: pr.prove_tag_dir(
+                    f"{tmp}/x", tape_seed=PROOF_TAPE_SEED, device=dev,
+                    full_snark=False)),
+                ("trace", lambda: pr.prove_trace(
+                    ref.trace, tape_seed=PROOF_TAPE_SEED, device=dev,
+                    full_snark=False))):
+            pr.RECORD = []
+            try:
+                with contextlib.redirect_stdout(io.StringIO()):
+                    prove()
+                proofs[label] = pr.RECORD
+            finally:
+                pr.RECORD = None
+        require(len(proofs["trace"]) == 2
+                and proofs["tag_dir"] == proofs["trace"],
+                "prove_tag_dir's proof bytes differ from prove_trace's")
+    log(f"two-process conv {SIZE}x{SIZE}: 18 mults / 16 adds on both sides; "
+        f"server request {serve_ms:.1f} ms (receive to send, on the card), "
+        f"client process {client_s * 1e3:.0f} ms ({'; '.join(client_line)}); "
+        f"exported trace equal to the in-process run and to host_ec; "
+        f"prove_tag_dir bytes equal to prove_trace's "
+        f"({', '.join(str(len(b)) for _, b in proofs['trace'])} B), verified")
+    return launched
+
+
 def path_launches(kernels, name: str, launched: dict) -> dict:
     """Require every entry of path ``name`` to have launched on it."""
     idle = [k for k in PATH_ENTRIES[name] if launched[k] == 0]
@@ -1545,6 +1987,17 @@ def main() -> int:
     run_lenet(torch, dev, table)
     paths["lenet"] = path_launches(kernels, "lenet", dict(kernels.LAUNCHES))
     phase_done(6)
+
+    # -- phase 8 (before phase 7, which prints the kernels line) --
+    stock_paths, stock_err = run_stock(torch, dev, kernels, mul32_rate)
+    paths.update(stock_paths)
+    for name, e in stock_err.items():
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], e)
+    paths["ckpt"] = path_launches(kernels, "ckpt",
+                                  run_ckpt(torch, dev, kernels,
+                                           results[1][1]))
+    paths["transport"] = run_transport(torch, dev, kernels)
+    phase_done(8)
 
     # -- phase 7 --
     # K5 and the elementwise K4 addition lie off the main path; their counts

@@ -99,3 +99,34 @@ def test_random_tape_equals_vpin_tpu():
         assert port.random_scalar(b"r") == ref.random_scalar(b"r")
         assert port.random_vector(b"poly_blinds", 17) == \
             ref.random_vector(b"poly_blinds", 17)
+
+
+@pytest.mark.parametrize("seed", [3, 4])
+def test_snapshot_equals_vpin_tpu_and_restores_mid_stream(seed):
+    """After the same operations both packages' snapshots are the same
+    tuple; a fresh transcript restored from it mid-stream gives the
+    challenges that follow, as vpin_tpu's does."""
+    ops = _random_ops(seed, 80)
+    port, ref = Transcript(b"proto"), JTranscript(b"proto")
+    for op in ops[:40]:
+        name, *args = op
+        getattr(port, name)(*args)
+        getattr(ref, name)(*args)
+    snap = port.snapshot()
+    assert snap == ref.snapshot()
+    assert isinstance(snap[0], bytes) and len(snap[0]) == 200
+    resumed = Transcript(b"other")
+    resumed.restore(snap)
+    for op in ops[40:]:
+        name, *args = op
+        want = getattr(ref, name)(*args)
+        assert getattr(port, name)(*args) == want, op
+        assert getattr(resumed, name)(*args) == want, op
+    tape, jtape = RandomTape(b"proof", seed=seed), JRandomTape(b"proof",
+                                                                seed=seed)
+    tape.random_vector(b"blinds_poly", 3)
+    jtape.random_vector(b"blinds_poly", 3)
+    assert tape.snapshot() == jtape.snapshot()
+    fresh = RandomTape(b"proof", seed=seed + 1)
+    fresh.restore(tape.snapshot())
+    assert fresh.random_vector(b"v", 5) == jtape.random_vector(b"v", 5)

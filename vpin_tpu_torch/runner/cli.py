@@ -6,6 +6,9 @@
   python -m vpin_tpu_torch.runner.cli lenet [--prove]
   python -m vpin_tpu_torch.runner.cli bsgs --m 3200000
   python -m vpin_tpu_torch.runner.cli prove --dir DIR --seed 11
+  python -m vpin_tpu_torch.runner.cli mult-scale --mults 1000 --ckpt DIR
+  python -m vpin_tpu_torch.runner.cli serve-conv --port 35000 [--export DIR]
+  python -m vpin_tpu_torch.runner.cli client-conv --port 35000 --size 32
 
 Every command runs on the GPU; ``--device cpu`` runs the plain PyTorch
 versions.  ``conv``, ``cnn`` and ``lenet`` run client and server
@@ -14,7 +17,12 @@ and can prove it (``lenet`` layer by layer, over its L1..L7 slices).
 ``cnn`` and ``lenet`` decrypt with the BSGS table of ``--bsgs-m`` entries,
 read from ``--bsgs-cache`` when it holds one and written there otherwise;
 ``bsgs`` only builds that table.  ``prove`` proves a rust_files/<tag>
-witness directory.  Proofs are the full SNARK, with the SPARK eval proof
+witness directory.  ``mult-scale`` proves a synthetic trace of
+``--mults`` point mults (128-bit scalars, base points by host doublings);
+with ``--ckpt`` the proof saves checkpoints there and a killed run resumes
+from them.  ``serve-conv`` and ``client-conv`` run the conv workload as two
+processes over the reference's socket protocol on 127.0.0.1, either end
+interchangeable with vpin_tpu's.  Proofs are the full SNARK, with the SPARK eval proof
 over the committed R1CS matrices; ``--transparent`` skips the eval proof and
 has the verifier evaluate the public matrices itself.
 
@@ -181,6 +189,51 @@ def cmd_prove(args) -> int:
     return 0
 
 
+def cmd_mult_scale(args) -> int:
+    """A synthetic point-mult proof at scale (the LeNet-L5 path's gadget;
+    reference point_mult.rs:61-62)."""
+    from ..curve.host_ec import E2_G_HOST, E2_ORDER
+    from ..device import resolve_device
+    from .proof_runner import prove_point_mult
+
+    device = resolve_device(args.device)
+    rng = random.Random(args.seed)
+    n = args.mults
+    print(f"Generating {n} random point-mults (n=128-bit scalars)...")
+    t0 = time.perf_counter()
+    scalars = [rng.randrange(1, 1 << 128) for _ in range(n)]
+    P = rng.randrange(1, E2_ORDER) * E2_G_HOST
+    px, py = [], []
+    for _ in range(n):             # distinct base points by host doublings
+        px.append(P.x)
+        py.append(P.y)
+        P = P + P
+    print(f"trace ready in {time.perf_counter() - t0:.1f} s")
+    prove_point_mult(scalars, px, py, tape_seed=args.seed, device=device,
+                     full_snark=not args.transparent, ckpt_dir=args.ckpt)
+    return 0
+
+
+def cmd_serve_conv(args) -> int:
+    from ..nn.socket_runner import server_main
+    result = server_main(args.port, filter_size=args.filter,
+                         export_dir=args.export, device=args.device)
+    print(f"Server: Number of EC point multiplications: {result['num_mults']}")
+    print(f"Server: Number of EC point additions: {result['num_adds']}")
+    return 0
+
+
+def cmd_client_conv(args) -> int:
+    from ..nn.socket_runner import client_main
+    img = _make_image(args.size, args.seed)
+    t0 = time.perf_counter()
+    result = client_main(args.port, img, seed=args.seed, device=args.device)
+    print(f"Client: server reported {result}")
+    print(f"Client: request wall time "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms on {args.device}")
+    return 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="vpin-tpu-torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -237,6 +290,34 @@ def main(argv=None) -> int:
                         "the public matrices)")
     c.add_argument("--device", type=str, default="cuda")
     c.set_defaults(fn=cmd_prove)
+
+    c = sub.add_parser("serve-conv",
+                       help="socket-mode conv server (two-process)")
+    c.add_argument("--port", type=int, default=35000)
+    c.add_argument("--filter", type=int, default=3, choices=[3, 5, 7])
+    c.add_argument("--export", type=str, default=None)
+    c.add_argument("--device", type=str, default="cuda")
+    c.set_defaults(fn=cmd_serve_conv)
+
+    c = sub.add_parser("client-conv",
+                       help="socket-mode conv client (two-process)")
+    c.add_argument("--port", type=int, default=35000)
+    c.add_argument("--size", type=int, default=32)
+    c.add_argument("--seed", type=int, default=0)
+    c.add_argument("--device", type=str, default="cuda")
+    c.set_defaults(fn=cmd_client_conv)
+
+    c = sub.add_parser("mult-scale",
+                       help="synthetic point-mult proof at scale")
+    c.add_argument("--mults", type=int, default=1000)
+    c.add_argument("--seed", type=int, default=0)
+    c.add_argument("--transparent", action="store_true",
+                   help="skip the R1CS eval proof (the verifier evaluates "
+                        "the public matrices)")
+    c.add_argument("--ckpt", type=str, default=None,
+                   help="checkpoint dir: a killed proof resumes from it")
+    c.add_argument("--device", type=str, default="cuda")
+    c.set_defaults(fn=cmd_mult_scale)
     args = p.parse_args(argv)
     return args.fn(args)
 

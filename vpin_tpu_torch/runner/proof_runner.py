@@ -17,15 +17,20 @@ lines (vPIN_proof_generation/src/main.rs:14-46, proof_point_add.rs:23-113):
 Witnesses load from a WitnessTrace (in-process) or from the
 `rust_files/<tag>` JSON layout.  The prover runs on ``device`` (the GPU
 unless the caller passes "cpu"); the verifier runs on the host.
+
+``ckpt_dir`` makes a proof resumable (utils/checkpoint.py): a proof killed
+mid-way and started again over the same directory, witness and
+``tape_seed`` goes on where it stopped and gives the same bytes.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import time
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 from ..device import resolve_device, synchronize
 from ..gadgets.point_addition import point_addition_gadget
@@ -35,7 +40,12 @@ from ..snark.cp_snark import (
     snark_encode,
 )
 from ..transcript.merlin import Transcript
+from ..utils.bincode import serialize_snark
+from ..utils.checkpoint import CheckpointStore
 from ..utils.timer import span
+
+#: set to a list to collect (gadget label, proof bytes) of every proof made
+RECORD: Optional[List[Tuple[str, bytes]]] = None
 
 
 def _bytes_to_int(row) -> int:
@@ -73,7 +83,7 @@ class ProofStats:
 
 
 def _prove_gadget(gadget_out, tape_seed: Optional[int], device,
-                  full_snark: bool):
+                  full_snark: bool, ckpt: Optional[CheckpointStore] = None):
     inst, vars_para, vars_input, vars_full, inputs, nc, nv, ni, nnz = gadget_out
     gens = SNARKGens(nc, nv, ni, nnz)
     # SNARK::encode commits to the R1CS matrices, so that the verifier never
@@ -84,16 +94,45 @@ def _prove_gadget(gadget_out, tape_seed: Optional[int], device,
     with span("witness_commit"):
         poly_vars, comm_vars, blind_vars, comm_para, comm_input = \
             cp_commit_witness(vars_para, vars_input, vars_full, gens,
-                              tape_seed=tape_seed, device=device)
+                              tape_seed=tape_seed, device=device, ckpt=ckpt)
     pt = Transcript(b"snark_example")
     proof = cp_snark_prove(inst, vars_full, inputs, gens, pt,
                            poly_vars, comm_vars, blind_vars, decomm=decomm,
-                           tape_seed=tape_seed, with_eval_proof=full_snark)
+                           tape_seed=tape_seed, with_eval_proof=full_snark,
+                           ckpt=ckpt)
     return proof, inst, inputs, gens, comm_para, comm_input, comm
 
 
+def _witness_digest(*arrays) -> str:
+    """Digest of the witness, so that a checkpoint directory is never
+    resumed against another witness of the same shape (which would reuse
+    the earlier run's commitments)."""
+    h = hashlib.sha256()
+    for arr in arrays:
+        for v in arr:
+            h.update(int(v).to_bytes(33, "little", signed=False))
+        h.update(b"|")
+    return h.hexdigest()[:32]
+
+
+def _make_ckpt(ckpt_dir: Optional[str], kind: str, count: int,
+               tape_seed: Optional[int], n_bits: int = 0,
+               witness_digest: str = "") -> Optional[CheckpointStore]:
+    """A CheckpointStore bound to this proof run, or None without a
+    directory.  A directory made for another run raises ValueError, and so
+    does a checkpointed proof without a tape seed."""
+    if ckpt_dir is None:
+        return None
+    if tape_seed is None:
+        raise ValueError("a checkpointed proof needs a deterministic "
+                         "tape_seed")
+    return CheckpointStore(ckpt_dir, meta={
+        "kind": kind, "count": count, "tape_seed": tape_seed,
+        "n_bits": n_bits, "witness": witness_digest})
+
+
 def _prove_and_verify(label: str, build, count: int, tape_seed, quiet,
-                      device, full_snark) -> ProofStats:
+                      device, full_snark, ckpt=None) -> ProofStats:
     dev = resolve_device(device)
     t0 = time.perf_counter()
     if not quiet:
@@ -102,9 +141,12 @@ def _prove_and_verify(label: str, build, count: int, tape_seed, quiet,
     with span("gadget"):
         gadget = build(dev)
     proof, inst, inputs, gens, comm_para, comm_input, comm = _prove_gadget(
-        gadget, tape_seed, dev, full_snark)
+        gadget, tape_seed, dev, full_snark, ckpt=ckpt)
     synchronize(dev)
-    size = proof.size()
+    data = serialize_snark(proof)
+    size = len(data)
+    if RECORD is not None:
+        RECORD.append((label, data))
     gen_ms = int((time.perf_counter() - t0) * 1000)
     if not quiet:
         print(f"Proof size: {size} bytes")
@@ -125,24 +167,32 @@ def _prove_and_verify(label: str, build, count: int, tape_seed, quiet,
 
 
 def prove_point_add(px, py, rx, ry, rz, tape_seed=None, quiet=False,
-                    device=None, full_snark: bool = True) -> ProofStats:
+                    device=None, full_snark: bool = True,
+                    ckpt_dir: Optional[str] = None) -> ProofStats:
+    ckpt = _make_ckpt(ckpt_dir, "point_add", len(px), tape_seed,
+                      witness_digest=(_witness_digest(px, py, rx, ry, rz)
+                                      if ckpt_dir else ""))
     return _prove_and_verify(
         "Point Addition",
         lambda dev: point_addition_gadget(px, py, rx, ry, rz, device=dev),
-        len(px), tape_seed, quiet, device, full_snark)
+        len(px), tape_seed, quiet, device, full_snark, ckpt)
 
 
 def prove_point_mult(weights, px, py, n_bits=128, tape_seed=None,
-                     quiet=False, device=None,
-                     full_snark: bool = True) -> ProofStats:
+                     quiet=False, device=None, full_snark: bool = True,
+                     ckpt_dir: Optional[str] = None) -> ProofStats:
     if weights and max(int(w) for w in weights) >= (1 << n_bits):
         # wide rLC-combined FC scalars: the full-width double-and-add
         # circuit (the reference u128 loader would panic, load_data.rs:21-23)
         n_bits = 253
+    ckpt = _make_ckpt(ckpt_dir, "point_mult", len(weights), tape_seed,
+                      n_bits=n_bits,
+                      witness_digest=(_witness_digest(weights, px, py)
+                                      if ckpt_dir else ""))
     return _prove_and_verify(
         "Point Multiplication",
         lambda dev: point_mult_gadget(weights, px, py, n=n_bits, device=dev),
-        len(weights), tape_seed, quiet, device, full_snark)
+        len(weights), tape_seed, quiet, device, full_snark, ckpt)
 
 
 def _print_totals(stats_add: ProofStats, stats_mult: ProofStats):
@@ -158,12 +208,16 @@ def _print_totals(stats_add: ProofStats, stats_mult: ProofStats):
 
 
 def prove_tag_dir(dir_path: str, n_bits=128, tape_seed=None,
-                  skip_mult=False, device=None,
-                  full_snark: bool = True) -> Tuple[int, int, int]:
-    """`cargo run -- <tag>` equivalent over a rust_files/<tag> directory."""
+                  skip_mult=False, device=None, full_snark: bool = True,
+                  ckpt_dir: Optional[str] = None) -> Tuple[int, int, int]:
+    """`cargo run -- <tag>` equivalent over a rust_files/<tag> directory.
+    ckpt_dir: the base of the proofs' checkpoint directories, <base>/add
+    and <base>/mult."""
     stats_add = prove_point_add(*load_point_add_json(dir_path),
                                 tape_seed=tape_seed, device=device,
-                                full_snark=full_snark)
+                                full_snark=full_snark,
+                                ckpt_dir=(os.path.join(ckpt_dir, "add")
+                                          if ckpt_dir else None))
     print("")
     weights = []
     if not skip_mult and os.path.exists(
@@ -172,7 +226,9 @@ def prove_tag_dir(dir_path: str, n_bits=128, tape_seed=None,
     if weights:
         stats_mult = prove_point_mult(weights, px, py, n_bits=n_bits,
                                       tape_seed=tape_seed, device=device,
-                                      full_snark=full_snark)
+                                      full_snark=full_snark,
+                                      ckpt_dir=(os.path.join(ckpt_dir, "mult")
+                                                if ckpt_dir else None))
     else:
         print("Number of Point Multiplications: 0")
         print("Proof size: 0 bytes")

@@ -158,12 +158,31 @@ def _hyrax_commit_sparse(n: int, entries, gens_pc, tape):
 
 
 def cp_commit_witness(vars_para, vars_input, full_vars, gens: SNARKGens,
-                      tape_seed: Optional[int] = None, device=None):
+                      tape_seed: Optional[int] = None, device=None,
+                      ckpt=None):
     """Commit the two witness shares and the combined witness (reference
     proof_point_add.rs:44-78).  Host int lists become tensors on
-    ``device`` when they are longer than HOST_POLY_MAX."""
+    ``device`` when they are longer than HOST_POLY_MAX.
+
+    With a CheckpointStore the row commitments are saved under
+    ``witness_commit``; on resume they load from it and the blinds are drawn
+    again from the seeded tape: twice ``poly_blinds`` of L_size, exactly
+    the draws of the sparse and the dense Hyrax paths."""
     n = gens.num_vars_padded
     tape1 = RandomTape(bytes([2]), seed=tape_seed)
+
+    cached = ckpt.load("witness_commit") if ckpt is not None else None
+    if cached is not None:
+        if tape_seed is None:
+            raise ValueError("a checkpoint resume needs tape_seed")
+        L_size = 1 << factored_lens(n.bit_length() - 1)[0]
+        blind_para = tape1.random_vector(b"poly_blinds", L_size)
+        blind_input = tape1.random_vector(b"poly_blinds", L_size)
+        blind_vars = [(a + b) % L for a, b in zip(blind_para, blind_input)]
+        poly_vars = _assignment_poly(full_vars, n, device)
+        return (poly_vars, PolyCommitment(cached["vars"]), blind_vars,
+                PolyCommitment(cached["para"]),
+                PolyCommitment(cached["input"]))
 
     gens_pc = gens.gens_r1cs_sat.gens_pc
     sparse_para = _sparse_entries(vars_para)
@@ -186,6 +205,10 @@ def cp_commit_witness(vars_para, vars_input, full_vars, gens: SNARKGens,
     pa = [H.decode(bytes(b)) for b in comm_para.C]
     pi = [H.decode(bytes(b)) for b in comm_input.C]
     comm_vars = PolyCommitment([(a + b).encode() for a, b in zip(pa, pi)])
+    if ckpt is not None:
+        ckpt.save("witness_commit", {"para": list(comm_para.C),
+                                     "input": list(comm_input.C),
+                                     "vars": list(comm_vars.C)})
     return (poly_vars, comm_vars, blind_vars, comm_para, comm_input)
 
 
@@ -194,27 +217,44 @@ def cp_snark_prove(inst: R1CSInstance, full_vars, inputs: List[int],
                    poly_vars: DensePoly, comm_vars: PolyCommitment,
                    blind_vars: List[int], decomm=None,
                    tape_seed: Optional[int] = None,
-                   with_eval_proof: bool = False) -> CPSnarkProof:
+                   with_eval_proof: bool = False, ckpt=None) -> CPSnarkProof:
     """my_lib_prove (commit_test.rs:59-133).  The full SNARK
     (``with_eval_proof``) takes ``decomm``, the dense matrices from
-    ``snark_encode``."""
+    ``snark_encode``.  With a CheckpointStore the sumchecks save their
+    rounds, and the finished sat proof is saved under ``post_sat``; a resume
+    past it goes straight to the eval proof."""
     if with_eval_proof and decomm is None:
         raise ValueError("the eval proof needs snark_encode's decommitment")
     t_all = Timer("SNARK::prove")
     tape = RandomTape(b"proof", seed=tape_seed)
     transcript.append_protocol_name(SNARK_PROTOCOL)
 
-    padded_vars = pad_assignment(full_vars, gens.num_vars_padded)
-    with span("R1CSProof::prove"):
-        sat_proof, rx, ry = r1cs_prove_cp(
-            inst, padded_vars, inputs, gens.gens_r1cs_sat, transcript,
-            tape, poly_vars, comm_vars, blind_vars)
+    post_sat = ckpt.load("post_sat") if ckpt is not None else None
+    if post_sat is not None:
+        if tape_seed is None:
+            raise ValueError("a checkpoint resume needs tape_seed")
+        transcript.restore(post_sat["transcript"])
+        tape.restore(post_sat["tape"])
+        sat_proof = post_sat["sat_proof"]
+        rx, ry = post_sat["rx"], post_sat["ry"]
+        Ar, Br, Cr = post_sat["evals"]
+    else:
+        padded_vars = pad_assignment(full_vars, gens.num_vars_padded)
+        with span("R1CSProof::prove"):
+            sat_proof, rx, ry = r1cs_prove_cp(
+                inst, padded_vars, inputs, gens.gens_r1cs_sat, transcript,
+                tape, poly_vars, comm_vars, blind_vars, ckpt=ckpt)
 
-    with span("eval_sparse_polys"):
-        Ar, Br, Cr = inst.evaluate(rx, ry)
-    transcript.append_scalar(b"Ar_claim", Ar)
-    transcript.append_scalar(b"Br_claim", Br)
-    transcript.append_scalar(b"Cr_claim", Cr)
+        with span("eval_sparse_polys"):
+            Ar, Br, Cr = inst.evaluate(rx, ry)
+        transcript.append_scalar(b"Ar_claim", Ar)
+        transcript.append_scalar(b"Br_claim", Br)
+        transcript.append_scalar(b"Cr_claim", Cr)
+        if ckpt is not None:
+            ckpt.save("post_sat", {
+                "transcript": transcript.snapshot(), "tape": tape.snapshot(),
+                "sat_proof": sat_proof, "rx": rx, "ry": ry,
+                "evals": (Ar, Br, Cr)})
 
     eval_proof = None
     if with_eval_proof:

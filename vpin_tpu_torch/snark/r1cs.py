@@ -99,6 +99,14 @@ class SparseMat:
     def nnz(self) -> int:
         return int(len(self.rows))
 
+    @property
+    def entries(self) -> List[Tuple[int, int, int]]:
+        """The (row, col, value) triples, columns shifted, in stored order
+        (the instance digest reads them)."""
+        cb = self.codebook
+        return [(r, c, cb[k]) for r, c, k in zip(
+            self.rows.tolist(), self.cols.tolist(), self.codes.tolist())]
+
     def _book_mont(self, device) -> torch.Tensor:
         key = str(device)
         if key not in self._book:

@@ -1,11 +1,13 @@
-"""R1CS satisfiability proof (two ZK sumchecks + Hyrax opening) with the
-vPIN commit-and-prove (CP) modifications.
+"""R1CS satisfiability proof (two ZK sumchecks + Hyrax opening), stock and
+with the vPIN commit-and-prove (CP) modifications.
 
 Port of vpin_tpu/snark/r1csproof.py, bit for bit on the transcript:
   * my_R1CSProof_prove / my_r1csproof_verify
     (reference vPIN_proof_generation/src/commit_test.rs:136-496): the CP
     variant appends the externally-combined witness commitment and does
     NOT append `input`;
+  * the stock R1CSProof::prove / verify (Spartan/src/r1csproof.rs:161-500),
+    which appends `input` and commits the witness itself;
   * PolyEvalProof (reference Spartan/src/dense_mlpoly.rs:317-418);
   * gens derivation (reference Spartan/src/r1csproof.rs:49-91).
 Table-sized prover work (multiply_vec, eq tables, sumcheck rounds, Hyrax
@@ -30,7 +32,7 @@ from ..field import FQ
 from ..field.prime_field import L_MODULUS as L
 from ..nizk.sigma import (
     DotProductProofLog, EqualityProof, KnowledgeProof, ProductProof,
-    dot_product_proof_gens,
+    append_scalars_vector, dot_product_proof_gens,
 )
 from ..poly.dense import (DensePoly, dev_to_ints, eq_evals, eq_evals_host,
                           factored_lens, ints_to_dev)
@@ -99,6 +101,14 @@ def poly_commit(poly: DensePoly, gens_pc: PolyCommitmentGens,
     L_size = 1 << lnv
     blinds = (tape.random_vector(b"poly_blinds", L_size) if tape is not None
               else [0] * L_size)
+    return PolyCommitment(_hyrax_rows(poly, blinds, gens_pc.gens.gens_n)), blinds
+
+
+def combined_commit(poly: DensePoly, gens_pc: PolyCommitmentGens,
+                    blind_1: List[int], blind_2: List[int]):
+    """my_dense_mlpoly_commit: commit with blinds blind_1 + blind_2, so that
+    C(w) = C(w_para) + C(w_input) (reference commit_test.rs:27-57)."""
+    blinds = [(a + b) % L for a, b in zip(blind_1, blind_2)]
     return PolyCommitment(_hyrax_rows(poly, blinds, gens_pc.gens.gens_n)), blinds
 
 
@@ -197,13 +207,31 @@ def _log2(n: int) -> int:
 def r1cs_prove_cp(inst: R1CSInstance, vars_ints, inputs: List[int],
                   gens: R1CSGens, transcript: Transcript, tape: RandomTape,
                   poly_vars: DensePoly, comm_vars: PolyCommitment,
-                  blinds_vars: List[int]):
+                  blinds_vars: List[int], ckpt=None):
     """my_R1CSProof_prove (commit_test.rs:136-334).  The CP deviation:
     the externally-combined commitment is appended and `input` is NOT.
-    vars_ints: a host int list or a Montgomery tensor (num_vars, 8)."""
+    vars_ints: a host int list or a Montgomery tensor (num_vars, 8).
+    ckpt: a CheckpointStore for the two sumchecks (keys sc1 and sc2)."""
     transcript.append_protocol_name(R1CSProof.PROTOCOL)
     if len(inputs) >= _alen(vars_ints):
         raise ValueError("r1cs_prove_cp: more inputs than variables")
+    comm_vars.append_to_transcript(b"poly_commitment", transcript)
+    return _r1cs_prove_core(inst, vars_ints, inputs, gens, transcript, tape,
+                            poly_vars, comm_vars, blinds_vars, ckpt=ckpt)
+
+
+def r1cs_prove_stock(inst: R1CSInstance, vars_ints, inputs: List[int],
+                     gens: R1CSGens, transcript: Transcript,
+                     tape: RandomTape):
+    """Stock R1CSProof::prove (r1csproof.rs:161-366): appends `input` and
+    commits the witness itself with the proof tape."""
+    transcript.append_protocol_name(R1CSProof.PROTOCOL)
+    if len(inputs) >= _alen(vars_ints):
+        raise ValueError("r1cs_prove_stock: more inputs than variables")
+    append_scalars_vector(transcript, b"input", inputs)
+    poly_vars = (DensePoly(vars_ints) if isinstance(vars_ints, torch.Tensor)
+                 else DensePoly.from_ints(vars_ints, inst.device))
+    comm_vars, blinds_vars = poly_commit(poly_vars, gens.gens_pc, tape)
     comm_vars.append_to_transcript(b"poly_commitment", transcript)
     return _r1cs_prove_core(inst, vars_ints, inputs, gens, transcript, tape,
                             poly_vars, comm_vars, blinds_vars)
@@ -214,7 +242,7 @@ def _alen(vals) -> int:
 
 
 def _r1cs_prove_core(inst, vars_ints, inputs, gens, transcript, tape,
-                     poly_vars, comm_vars, blinds_vars):
+                     poly_vars, comm_vars, blinds_vars, ckpt=None):
     num_vars = _alen(vars_ints)
     host = inst.host_mode and not isinstance(vars_ints, torch.Tensor)
     if isinstance(vars_ints, torch.Tensor):
@@ -241,7 +269,8 @@ def _r1cs_prove_core(inst, vars_ints, inputs, gens, transcript, tape,
         sc_proof_phase1, rx, claims_phase1, blind_claim_postsc1 = \
             ZKSumcheckInstanceProof.prove_cubic_with_additive_term(
                 0, 0, num_rounds_x, poly_tau, poly_Az, poly_Bz, poly_Cz,
-                gens.gens_sc.gens_1, gens.gens_sc.gens_4, transcript, tape)
+                gens.gens_sc.gens_1, gens.gens_sc.gens_4, transcript, tape,
+                ckpt=ckpt, ckpt_key="sc1")
     tau_claim, Az_claim, Bz_claim, Cz_claim = claims_phase1
 
     Az_blind = tape.random_scalar(b"Az_blind")
@@ -296,7 +325,8 @@ def _r1cs_prove_core(inst, vars_ints, inputs, gens, transcript, tape,
             ZKSumcheckInstanceProof.prove_quad(
                 claim_phase2, blind_claim_phase2, num_rounds_y,
                 poly_z2, poly_abc,
-                gens.gens_sc.gens_1, gens.gens_sc.gens_3, transcript, tape)
+                gens.gens_sc.gens_1, gens.gens_sc.gens_3, transcript, tape,
+                ckpt=ckpt, ckpt_key="sc2")
 
     eval_vars_at_ry = poly_vars.evaluate(ry[1:])
     blind_eval = tape.random_scalar(b"blind_eval")
@@ -338,6 +368,19 @@ def r1cs_verify_cp(proof: R1CSProof, num_vars: int, num_cons: int,
     combined.append_to_transcript(b"poly_commitment", transcript)
     return _r1cs_verify_core(proof, num_vars, num_cons, inputs, evals,
                              transcript, gens, combined, acc=acc)
+
+
+@verify_guard(failure=None)
+def r1cs_verify_stock(proof: R1CSProof, num_vars: int, num_cons: int,
+                      inputs: List[int], evals: Tuple[int, int, int],
+                      transcript: Transcript, gens: R1CSGens, acc=None):
+    """Stock R1CSProof::verify (r1csproof.rs:368-500).  Returns (rx, ry) or
+    None on failure."""
+    transcript.append_protocol_name(R1CSProof.PROTOCOL)
+    append_scalars_vector(transcript, b"input", inputs)
+    proof.comm_vars.append_to_transcript(b"poly_commitment", transcript)
+    return _r1cs_verify_core(proof, num_vars, num_cons, inputs, evals,
+                             transcript, gens, proof.comm_vars, acc=acc)
 
 
 IDENTITY_BYTES = bytes(32)      # compressed ristretto identity

@@ -23,6 +23,7 @@ from ..field.prime_field import L_MODULUS as L
 from ..nizk.sigma import DotProductProof, commit1, commitN
 from ..poly.dense import DensePoly
 from ..transcript.merlin import Transcript
+from ..utils.checkpoint import ROUNDS_PER_CHECKPOINT
 from ..utils.errors import verify_guard
 
 _INV2 = pow(2, -1, L)
@@ -288,9 +289,16 @@ class ZKSumcheckInstanceProof:
 
     @staticmethod
     def _prove_rounds(claim, blind_claim, num_rounds, polys, kind,
-                      gens_1, gens_n, transcript, tape):
+                      gens_1, gens_n, transcript, tape,
+                      ckpt=None, ckpt_key=""):
         """Shared round loop; kind in {'quad', 'cubic_additive'}.  polys
-        are DensePolys, all host or all tensor."""
+        are DensePolys, all host or all tensor.
+
+        With a CheckpointStore ``ckpt``, every ROUNDS_PER_CHECKPOINT rounds
+        (and after the last) the sponges and the artifacts so far are saved
+        under ``ckpt_key``, as host ints and bytes only.  On resume the
+        bound tables are rebuilt by binding the fresh tables to the
+        recorded challenges again; no table is ever stored."""
         blinds_poly = tape.random_vector(b"blinds_poly", num_rounds)
         blinds_evals = tape.random_vector(b"blinds_evals", num_rounds)
 
@@ -306,7 +314,29 @@ class ZKSumcheckInstanceProof:
         host = polys[0].is_host
         tabs = [p.Zh if host else p.Z for p in polys]
 
-        for j in range(num_rounds):
+        def bind(tabs, r_j):
+            if host:
+                for p in polys:
+                    p.bound_poly_var_top(r_j)
+                return [p.Zh for p in polys]
+            return bind_tables(tabs, r_j)
+
+        start = 0
+        snap = ckpt.load(ckpt_key) if ckpt is not None else None
+        if snap is not None and snap["num_rounds"] == num_rounds:
+            transcript.restore(snap["transcript"])
+            tape.restore(snap["tape"])
+            r = list(snap["r"])
+            comm_polys = list(snap["comm_polys"])
+            comm_evals = list(snap["comm_evals"])
+            proofs = list(snap["proofs"])
+            claim_per_round = snap["claim_per_round"]
+            comm_claim_per_round = snap["comm_claim_per_round"]
+            start = snap["j"]
+            for r_j in r:                  # replay the binds up to round start
+                tabs = bind(tabs, r_j)
+
+        for j in range(start, num_rounds):
             ev = (round_evals_host(kind, tabs) if host
                   else round_evals(kind, tabs))
             if kind == "quad":
@@ -321,12 +351,7 @@ class ZKSumcheckInstanceProof:
             comm_polys.append(comm_poly)
 
             r_j = transcript.challenge_scalar(b"challenge_nextround")
-            if host:
-                for p in polys:
-                    p.bound_poly_var_top(r_j)
-                tabs = [p.Zh for p in polys]
-            else:
-                tabs = bind_tables(tabs, r_j)
+            tabs = bind(tabs, r_j)
 
             eval_r = poly.evaluate(r_j)
             comm_eval = commit1(eval_r, blinds_evals[j], gens_1).compress()
@@ -356,6 +381,18 @@ class ZKSumcheckInstanceProof:
             r.append(r_j)
             comm_evals.append(comm_eval)
 
+            if ckpt is not None and ((j + 1) % ROUNDS_PER_CHECKPOINT == 0
+                                     or j + 1 == num_rounds):
+                ckpt.save(ckpt_key, {
+                    "num_rounds": num_rounds, "j": j + 1,
+                    "transcript": transcript.snapshot(),
+                    "tape": tape.snapshot(),
+                    "r": list(r), "comm_polys": list(comm_polys),
+                    "comm_evals": list(comm_evals), "proofs": list(proofs),
+                    "claim_per_round": claim_per_round,
+                    "comm_claim_per_round": comm_claim_per_round,
+                })
+
         if host:
             claims = [t[0] for t in tabs]
         else:
@@ -366,15 +403,17 @@ class ZKSumcheckInstanceProof:
 
     @staticmethod
     def prove_quad(claim, blind_claim, num_rounds, poly_A, poly_B,
-                   gens_1, gens_n, transcript, tape):
+                   gens_1, gens_n, transcript, tape, ckpt=None, ckpt_key=""):
         return ZKSumcheckInstanceProof._prove_rounds(
             claim, blind_claim, num_rounds, [poly_A, poly_B], "quad",
-            gens_1, gens_n, transcript, tape)
+            gens_1, gens_n, transcript, tape, ckpt=ckpt, ckpt_key=ckpt_key)
 
     @staticmethod
     def prove_cubic_with_additive_term(claim, blind_claim, num_rounds,
                                        poly_A, poly_B, poly_C, poly_D,
-                                       gens_1, gens_n, transcript, tape):
+                                       gens_1, gens_n, transcript, tape,
+                                       ckpt=None, ckpt_key=""):
         return ZKSumcheckInstanceProof._prove_rounds(
             claim, blind_claim, num_rounds, [poly_A, poly_B, poly_C, poly_D],
-            "cubic_additive", gens_1, gens_n, transcript, tape)
+            "cubic_additive", gens_1, gens_n, transcript, tape,
+            ckpt=ckpt, ckpt_key=ckpt_key)

@@ -59,6 +59,14 @@ class Transcript:
     def challenge_vector(self, label: bytes, n: int) -> List[int]:
         return [self.challenge_scalar(label) for _ in range(n)]
 
+    # -- checkpoint support ---------------------------------------------
+
+    def snapshot(self) -> tuple:
+        return self.strobe.snapshot()
+
+    def restore(self, snap: tuple) -> None:
+        self.strobe.restore(snap)
+
 
 class RandomTape:
     """Prover-private randomness tape (a second transcript seeded with a
@@ -74,3 +82,9 @@ class RandomTape:
 
     def random_vector(self, label: bytes, n: int) -> List[int]:
         return self.tape.challenge_vector(label, n)
+
+    def snapshot(self) -> tuple:
+        return self.tape.snapshot()
+
+    def restore(self, snap: tuple) -> None:
+        self.tape.restore(snap)

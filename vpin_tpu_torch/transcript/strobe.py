@@ -1,8 +1,9 @@
 """STROBE-128 (the merlin subset): AD / meta-AD / PRF / KEY over
 Keccak-f[1600], bit-compatible with merlin's strobe.rs.
 
-Port of vpin_tpu/transcript/strobe.py with its pure-Python byte loops only
-(the reference's optional C core is not used).
+Port of vpin_tpu/transcript/strobe.py in pure Python (the reference's
+optional C core is not used); absorb XORs a run of bytes up to the rate's
+end as one integer.
 """
 
 from __future__ import annotations
@@ -42,9 +43,17 @@ class Strobe128:
         self.pos_begin = 0
 
     def _absorb(self, data: bytes) -> None:
-        for byte in data:
-            self.state[self.pos] ^= byte
-            self.pos += 1
+        # XOR as much as fits before the next permutation at once, as one
+        # integer (byte for byte the same as a loop over the bytes)
+        i, n = 0, len(data)
+        while i < n:
+            k = min(n - i, _R - self.pos)
+            lo, hi = self.pos, self.pos + k
+            run = (int.from_bytes(self.state[lo:hi], "little")
+                   ^ int.from_bytes(data[i:i + k], "little"))
+            self.state[lo:hi] = run.to_bytes(k, "little")
+            self.pos = hi
+            i += k
             if self.pos == _R:
                 self._run_f()
 
@@ -79,6 +88,20 @@ class Strobe128:
         force_f = (flags & (FLAG_C | FLAG_K)) != 0
         if force_f and self.pos != 0:
             self._run_f()
+
+    # -- checkpoint support ---------------------------------------------
+
+    def snapshot(self) -> tuple:
+        """The sponge state as host bytes and ints (the same tuple as
+        vpin_tpu's), for intra-proof checkpoints."""
+        return (bytes(self.state), self.pos, self.pos_begin, self.cur_flags)
+
+    def restore(self, snap: tuple) -> None:
+        state, pos, pos_begin, cur_flags = snap
+        self.state = bytearray(state)
+        self.pos = pos
+        self.pos_begin = pos_begin
+        self.cur_flags = cur_flags
 
     # -- public ops (merlin subset) -------------------------------------
 

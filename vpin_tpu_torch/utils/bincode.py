@@ -1,5 +1,5 @@
 """bincode-compatible proof serialization (sat proof, sigma proofs, ZK
-sumcheck, the SPARK eval proof, CPSnarkProof).
+sumcheck, the SPARK eval proof, CPSnarkProof and the stock SNARK, NIZK).
 
 Port of vpin_tpu/utils/bincode.py.  The wire format: little-endian u64 length prefixes for
 Vec<T>, raw fixed-size arrays, struct fields in declaration order; scalars
@@ -195,6 +195,15 @@ def serialize_snark(proof) -> bytes:
     return w.bytes()
 
 
+def serialize_nizk(proof) -> bytes:
+    """NIZK -> bincode bytes (lib.rs NIZK struct: sat proof, then (rx, ry))."""
+    w = Writer()
+    ser_r1cs_sat_proof(w, proof.r1cs_sat_proof)
+    w.vec(proof.r[0], w.scalar)
+    w.vec(proof.r[1], w.scalar)
+    return w.bytes()
+
+
 # ----------------------------------------------------------------------
 # deserializers (mirror the ser_* field order exactly)
 # ----------------------------------------------------------------------
@@ -318,3 +327,15 @@ def deserialize_snark(data: bytes):
         if r.off != len(data):
             raise ValueError("trailing bytes after the eval proof")
     return CPSnarkProof(sat, evals, eval_proof)
+
+
+def deserialize_nizk(data: bytes):
+    """bincode bytes -> NIZK; trailing bytes raise."""
+    from ..snark.nizk_api import NIZK
+    r = Reader(data)
+    sat = des_r1cs_sat_proof(r)
+    rx = r.vec(r.scalar)
+    ry = r.vec(r.scalar)
+    if r.off != len(data):
+        raise ValueError("trailing bytes after the NIZK proof")
+    return NIZK(sat, (rx, ry))
