@@ -89,9 +89,22 @@ Phases:
      counts, the exported trace equal to the in-process conv on the same
      ciphertext and keys and to host_ec, and prove_tag_dir's proof bytes
      equal to prove_trace's;
+  9. (run after phase 8, before phase 7) the sharded prover, its launch
+     counts set to 0 before it and read after it (path ``mesh``): (a)
+     dryrun_multichip on Mesh((cuda:0,) * 4), the 2-mult proof's bytes with
+     and without the mesh equal, 11,840 B; (b) phase 5's warm conv trace
+     proven again under that mesh, full SNARK, tape seed 3, byte-equal to
+     phase 5's proofs and verified on the host, every sharded entry of
+     vpin_tpu_torch/parallel/ops.py engaged, the proof times beside phase
+     5's; (c) every K4 and K1 shape the shards gave the kernels (calls made
+     from ops.py) that phase 3 does not hold, held bit for bit against its
+     plain version on the path's own operands and timed; (d) with two or
+     more cards, (a) on default_mesh(), else a line saying why not.  One
+     card runs its shards in turn, so this checks correctness at full
+     width, not speed across cards;
   7. each entry's launch count on the main path, mont_pow and ed_msm among
      them (K5's and the elementwise K4 addition's on their own path,
-     msm_bits, in phase 3), and on the paths of phases 6 and 8.
+     msm_bits, in phase 3), and on the paths of phases 6, 8 and 9.
 Each phase prints its wall time.  The line before the last is a JSON object
 with every kernel's numbers (``launches``: phase 5's main path;
 ``path_launches``: each path's); the last is {"ok": true, "device": {...}}.  Any failure raises: the script then
@@ -179,6 +192,7 @@ PATH_ENTRIES = {
     "nizk": ("mont_mul", "ed_table", "ed_msm"),
     "ckpt": ("mont_mul", "mont_pow"),
     "transport": ("mont_mul", "mont_pow", "e2_add", "e2_scalar_mul"),
+    "mesh": ("mont_mul", "mont_pow", "ed_table", "ed_msm"),
 }
 # phase 8: the synthetic stock SNARK and NIZK at the repo's one recorded
 # point, produce_synthetic_r1cs(2^16, 2^16, 10, seed=1), tape seed 5, whose
@@ -187,6 +201,14 @@ PATH_ENTRIES = {
 STOCK_K = 1 << 16
 STOCK_BYTES = 84840
 TRANSPORT_SEED = 7
+# phase 9: the sharded prover on a mesh that names the card MESH_SHARDS
+# times; dryrun_multichip's 2-mult transparent proof is 11,840 B
+# (MULTICHIP_r05.json, vpin_tpu's run); the shards' launches come from code
+# in OPS_FILE
+MESH_SHARDS = 4
+DRYRUN_BYTES = 11840
+MULT_FULL_PROOF_BYTES = 103744
+OPS_FILE = "vpin_tpu_torch/parallel/ops.py"
 _ROOT = Path(__file__).resolve().parent
 ADD_PROOF_BYTES = 6992
 MULT_PROOF_BYTES = 19920
@@ -1163,6 +1185,7 @@ def prove_request(torch, dev, fin):
     each verified on the host.  Returns the full SNARK's numbers."""
     from vpin_tpu_torch import kernels
     from vpin_tpu_torch.gadgets import point_addition, point_mult
+    from vpin_tpu_torch.runner import proof_runner
     from vpin_tpu_torch.runner.proof_runner import (
         prove_point_add, prove_point_mult, trace_args,
     )
@@ -1185,17 +1208,22 @@ def prove_request(torch, dev, fin):
     for full in (False, True):
         mode = "full SNARK" if full else "transparent"
         before = dict(kernels.LAUNCHES)
-        st_add = prove_point_add(*add, tape_seed=PROOF_TAPE_SEED, quiet=True,
-                                 device=dev, full_snark=full)
-        mid = dict(kernels.LAUNCHES)
-        timer.RECORD = []
+        proof_runner.RECORD = []
         try:
-            st_mult = prove_point_mult(*mult, tape_seed=PROOF_TAPE_SEED,
-                                       quiet=True, device=dev,
-                                       full_snark=full)
-            record = timer.RECORD
+            st_add = prove_point_add(*add, tape_seed=PROOF_TAPE_SEED,
+                                     quiet=True, device=dev, full_snark=full)
+            mid = dict(kernels.LAUNCHES)
+            timer.RECORD = []
+            try:
+                st_mult = prove_point_mult(*mult, tape_seed=PROOF_TAPE_SEED,
+                                           quiet=True, device=dev,
+                                           full_snark=full)
+                record = timer.RECORD
+            finally:
+                timer.RECORD = None
+            blobs = [b for _, b in proof_runner.RECORD]
         finally:
-            timer.RECORD = None
+            proof_runner.RECORD = None
         after = dict(kernels.LAUNCHES)
         add_l = {k: mid[k] - before[k] for k in before}
         mult_l = {k: after[k] - mid[k] for k in before}
@@ -1227,7 +1255,8 @@ def prove_request(torch, dev, fin):
             f"{label} {ms:.1f} ms {({k: v for k, v in n.items() if v})}"
             for label, (ms, n) in spans.items()))
         out[full] = dict(add=st_add.__dict__, mult=st_mult.__dict__,
-                         add_launches=add_l, mult_launches=mult_l)
+                         add_launches=add_l, mult_launches=mult_l,
+                         bytes=blobs)
     return out
 
 
@@ -1457,17 +1486,30 @@ def run_lenet(torch, dev, table):
 class ShapeLog:
     """Records, while active, the shapes the path gives K4's ed_table and
     ed_msm and K1's mont_mul, with each shape's first operands (cloned) and
-    its calls; the wrappers underneath still count their launches."""
+    its calls; the wrappers underneath still count their launches.  With
+    ``within`` (a file of the repo) only calls made, at any depth, from code
+    in that file are recorded."""
 
-    def __init__(self):
+    def __init__(self, within: str = None):
         from vpin_tpu_torch.curve import cuda_edwards
         from vpin_tpu_torch.field import prime_field
         self.mods = {"ed_table": cuda_edwards, "ed_msm": cuda_edwards,
                      "mont_mul": prime_field}
         self.calls, self.first = {}, {}
+        self.within = within
+
+    def _inside(self) -> bool:
+        f = sys._getframe(2)
+        while f is not None:
+            if f.f_code.co_filename.endswith(self.within):
+                return True
+            f = f.f_back
+        return False
 
     def _wrap(self, name, fn):
         def wrapper(*args):
+            if self.within is not None and not self._inside():
+                return fn(*args)
             if name == "ed_table":
                 key = (name, args[1][0].shape[0])
             elif name == "ed_msm":
@@ -1496,11 +1538,14 @@ class ShapeLog:
             setattr(m, k, self.saved[k])
 
 
-def hold_new_shapes(torch, dev, rate, shapes: ShapeLog, held: set) -> dict:
-    """Each K4 shape of the stock path outside ``held`` (phase 3's) and its
-    largest mont_mul batch, on the path's own operands: kernel against
-    plain, timed, with its bound and its calls on the path.  Returns the
-    largest error per entry."""
+def hold_new_shapes(torch, dev, rate, shapes: ShapeLog, held: set,
+                    label: str = "stock path", every_mul: bool = False,
+                    rows: list = None) -> dict:
+    """Each K4 shape of the path outside ``held`` (phase 3's) and its
+    largest mont_mul batch (every one with ``every_mul``), on the path's own
+    operands: kernel against plain, timed, with its bound and its calls on
+    the path.  Appends each shape's numbers to ``rows`` when given.  Returns
+    the largest error per entry."""
     from vpin_tpu_torch.curve import cuda_edwards as CE
     from vpin_tpu_torch.curve.ristretto import RISTRETTO as R
     from vpin_tpu_torch.field import FQ
@@ -1510,7 +1555,8 @@ def hold_new_shapes(torch, dev, rate, shapes: ShapeLog, held: set) -> dict:
     big = max(muls, key=lambda k: k[2])
     for key in sorted(shapes.calls):
         name = key[0]
-        if key in held or (name == "mont_mul" and key != big):
+        if key in held or (name == "mont_mul" and key != big
+                           and not (every_mul and key in muls)):
             continue
         args = shapes.first[key]
         if name == "ed_table":
@@ -1543,9 +1589,12 @@ def hold_new_shapes(torch, dev, rate, shapes: ShapeLog, held: set) -> dict:
         del got, want
         ms = kernel_ms(torch, fn, launches=3 if name != "mont_mul" else 20,
                        repeats=3)
-        log(f"stock path shape {key}: {shapes.calls[key]} calls; bit-equal "
+        log(f"{label} shape {key}: {shapes.calls[key]} calls; bit-equal "
             f"to plain on the path's operands; kernel {ms:.4f} ms, plain "
             f"{plain_ms:.1f} ms, bound {bnd:.4f} ms ({by})")
+        if rows is not None:
+            rows.append(dict(shape=key, calls=shapes.calls[key], ms=ms,
+                             plain_ms=plain_ms, bound_ms=bnd, bound_by=by))
     return err
 
 
@@ -1860,6 +1909,99 @@ def run_transport(torch, dev, kernels):
     return launched
 
 
+# ----------------------------------------------------------------------
+# phase 9: the sharded prover on a mesh that names the card several times
+# ----------------------------------------------------------------------
+
+def run_mesh(torch, dev, kernels, rate, fin, single):
+    """(a) dryrun_multichip on Mesh((cuda:0,) * MESH_SHARDS): the 2-mult
+    proof's bytes with and without the mesh equal, DRYRUN_BYTES; (b) phase
+    5's warm conv trace proven again under that mesh, full SNARK, tape seed
+    PROOF_TAPE_SEED: bytes equal to ``single`` (phase 5's proofs), verified,
+    every sharded entry engaged; the path's launch counts from 0 over (a)
+    and (b); (c) every K4 and K1 shape the shards gave the kernels that
+    phase 3 does not hold, held bit for bit against its plain version on the
+    path's own operands and timed; (d) with several cards, (a) on a mesh of
+    them.  Returns (the path's launches, the largest error per entry, the
+    shard shapes' rows)."""
+    from vpin_tpu_torch.parallel import ENGAGED, Mesh, default_mesh, use_mesh
+    from vpin_tpu_torch.parallel.dryrun import dryrun_multichip
+    from vpin_tpu_torch.runner import proof_runner as pr
+    mesh = Mesh((dev,) * MESH_SHARDS)
+    add, mult = pr.trace_args(fin)
+    fresh_generators()
+    for name in kernels.LAUNCHES:
+        kernels.LAUNCHES[name] = 0
+    before = dict(ENGAGED)
+    with ShapeLog(within=OPS_FILE) as shapes:
+        dry = dryrun_multichip(mesh, dev, log=lambda m: log(f"dryrun: {m}"))
+        pr.RECORD = []
+        try:
+            with use_mesh(mesh):
+                st_add = pr.prove_point_add(*add, tape_seed=PROOF_TAPE_SEED,
+                                            quiet=True, device=dev)
+                st_mult = pr.prove_point_mult(*mult,
+                                              tape_seed=PROOF_TAPE_SEED,
+                                              quiet=True, device=dev)
+            blobs = [b for _, b in pr.RECORD]
+        finally:
+            pr.RECORD = None
+    launched = dict(kernels.LAUNCHES)
+    engaged = {k: ENGAGED[k] - before[k] for k in ENGAGED}
+    require(dry["proof_bytes"] == DRYRUN_BYTES,
+            f"dryrun proof {dry['proof_bytes']} B, want {DRYRUN_BYTES}")
+    require([len(b) for b in blobs] == [ADD_FULL_PROOF_BYTES,
+                                        MULT_FULL_PROOF_BYTES],
+            f"sharded conv proofs {[len(b) for b in blobs]} B, want "
+            f"{ADD_FULL_PROOF_BYTES} + {MULT_FULL_PROOF_BYTES}")
+    require(blobs == single["bytes"],
+            "the sharded conv proofs differ from phase 5's single-device "
+            "proofs")
+    require(all(v > 0 for v in engaged.values()),
+            f"a sharded entry never engaged: {engaged}")
+    log(f"dryrun_multichip over {mesh}: {dry['constraints']} constraints, "
+        f"{dry['proof_bytes']} B with and without the mesh, single "
+        f"{dry['single_s'] * 1e3:.0f} ms, sharded {dry['mesh_s'] * 1e3:.0f} "
+        f"ms (gadget, commit, prove, host verify); engaged {dry['engaged']}")
+    log(f"conv full SNARK over {mesh}: add {len(blobs[0])} B, mult "
+        f"{len(blobs[1])} B, byte-equal to phase 5's, verified; prove_add_ms "
+        f"{st_add.gen_ms} (phase 5, one device: {single['add']['gen_ms']}), "
+        f"prove_mult_ms {st_mult.gen_ms} ({single['mult']['gen_ms']}), "
+        f"verify_add_ms {st_add.ver_ms}, verify_mult_ms {st_mult.ver_ms}; "
+        f"sharded calls over (a) and (b): {engaged}")
+    path = path_launches(kernels, "mesh", launched)
+    log("shard shapes (calls): " + ", ".join(
+        f"{k} x{v}" for k, v in sorted(shapes.calls.items())))
+    held = {("ed_table", BULLET_N), ("ed_table", COMB_N),
+            ("ed_table", COMB_WIDTH), ("ed_msm", 1, BULLET_N, BULLET_N),
+            ("ed_msm", COMB_ROWS, COMB_N, COMB_WIDTH),
+            ("mont_mul", "Fl", 1 << 16), ("mont_mul", "Fl", MONT_LARGE)}
+    rows = []
+    err = hold_new_shapes(torch, dev, rate, shapes, held, label="shard",
+                          every_mul=True, rows=rows)
+    k1 = sorted((r for r in rows if r["shape"][0] == "mont_mul"),
+                key=lambda r: r["shape"][2])
+    if k1:
+        big = k1[-1]
+        log(f"K1 shard shapes: {len(k1)}, {k1[0]['shape'][2]} to "
+            f"{big['shape'][2]} products, each bit-equal to plain; the "
+            f"largest: kernel {big['ms']:.4f} ms, plain "
+            f"{big['plain_ms']:.1f} ms, bound {big['bound_ms']:.4f} ms "
+            f"({big['bound_by']}), {big['calls']} calls")
+    if torch.cuda.device_count() > 1:
+        many = default_mesh()
+        out = dryrun_multichip(many, dev, log=lambda m: log(f"dryrun: {m}"))
+        require(out["proof_bytes"] == DRYRUN_BYTES,
+                f"dryrun over {many}: {out['proof_bytes']} B")
+        log(f"dryrun_multichip over {many}: byte-equal, {DRYRUN_BYTES} B, "
+            f"sharded {out['mesh_s'] * 1e3:.0f} ms")
+    else:
+        log("phase 9 (d): dryrun_multichip on default_mesh() skipped: "
+            f"torch.cuda.device_count() is {torch.cuda.device_count()}, and a "
+            "mesh of distinct cards needs two or more")
+    return path, err, rows
+
+
 def path_launches(kernels, name: str, launched: dict) -> dict:
     """Require every entry of path ``name`` to have launched on it."""
     idle = [k for k in PATH_ENTRIES[name] if launched[k] == 0]
@@ -1949,7 +2091,7 @@ def main() -> int:
         kernels.LAUNCHES[name] = 0
     results = run_requests(torch, dev)
     conv_launches = dict(kernels.LAUNCHES)
-    prove_request(torch, dev, results[1][1])
+    single = prove_request(torch, dev, results[1][1])[True]
     launches = dict(kernels.LAUNCHES)
     log(f"launches over {REQUESTS} requests: {conv_launches}; over them and "
         f"one request's proof: {launches}")
@@ -1998,6 +2140,13 @@ def main() -> int:
                                            results[1][1]))
     paths["transport"] = run_transport(torch, dev, kernels)
     phase_done(8)
+
+    # -- phase 9 (before phase 7) --
+    paths["mesh"], mesh_err, _ = run_mesh(torch, dev, kernels, mul32_rate,
+                                          results[1][1], single)
+    for name, e in mesh_err.items():
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], e)
+    phase_done(9)
 
     # -- phase 7 --
     # K5 and the elementwise K4 addition lie off the main path; their counts

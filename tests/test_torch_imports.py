@@ -62,3 +62,27 @@ def test_no_jax_or_vpin_tpu_at_run_time():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_the_walk_sees_the_sharded_prover_and_the_c_core():
+    names = {p.relative_to(ROOT).as_posix() for p in FILES}
+    for mod in ("parallel/__init__.py", "parallel/mesh.py", "parallel/ops.py",
+                "parallel/dryrun.py", "transcript/_native.py"):
+        assert f"vpin_tpu_torch/{mod}" in names
+
+
+def test_sharded_prover_loads_no_jax_at_run_time():
+    """The mesh, its entries and the dryrun, with the transcript's C core
+    built and used, load neither JAX nor vpin_tpu."""
+    code = (
+        "import sys\n"
+        "import vpin_tpu_torch.parallel.dryrun\n"
+        "from vpin_tpu_torch.transcript import Transcript\n"
+        "assert Transcript(b't').strobe._lib is not None\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'vpin_tpu'))\n"
+        "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"

@@ -130,3 +130,85 @@ def test_snapshot_equals_vpin_tpu_and_restores_mid_stream(seed):
     fresh = RandomTape(b"proof", seed=seed + 1)
     fresh.restore(tape.snapshot())
     assert fresh.random_vector(b"v", 5) == jtape.random_vector(b"v", 5)
+
+
+# ----------------------------------------------------------------------
+# the C core (csrc/keccak.c) against the plain version
+# ----------------------------------------------------------------------
+
+# lengths on both sides of the 166-byte rate and of its multiples
+_RATE_EDGES = [0, 1, 2, 164, 165, 166, 167, 331, 332, 333, 500]
+
+
+def _strobe_ops(seed: int, n: int):
+    """A seeded stream of STROBE operations: meta_ad, ad, prf and key, some
+    continued (``more``) with the same flags, of lengths across the rate."""
+    rs = np.random.RandomState(seed)
+    ops, last = [], None
+    for _ in range(n):
+        name = ("meta_ad", "ad", "prf", "key")[rs.randint(4)]
+        more = last == name and rs.randint(3) == 0
+        if rs.randint(3) == 0:
+            size = _RATE_EDGES[rs.randint(len(_RATE_EDGES))]
+        else:
+            size = int(rs.randint(0, 400))
+        arg = size if name == "prf" else bytes(
+            rs.randint(0, 256, size=size).astype(np.uint8))
+        ops.append((name, arg, more))
+        last = name
+    return ops
+
+
+def _run(strobe, ops):
+    return [getattr(strobe, name)(arg, more) for name, arg, more in ops]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_c_core_equals_the_plain_version(seed):
+    from vpin_tpu_torch.transcript import Strobe128
+    ops = _strobe_ops(seed, 120)
+    c, plain = Strobe128(b"proto"), Strobe128(b"proto", native=False)
+    assert c._lib is not None and plain._lib is None
+    assert _run(c, ops) == _run(plain, ops)
+    assert c.snapshot() == plain.snapshot()
+    # a default transcript runs on the C core
+    assert Transcript(b"t").strobe._lib is not None
+
+
+@pytest.mark.parametrize("seed", [5, 6])
+def test_c_core_snapshot_and_restore_mid_stream(seed):
+    """A snapshot restored into the same sponge, into a fresh one and into a
+    plain one continues alike: restore writes the C core's buffer in place."""
+    from vpin_tpu_torch.transcript import Strobe128
+    ops = _strobe_ops(seed, 80)
+    c = Strobe128(b"proto")
+    _run(c, ops[:40])
+    snap = c.snapshot()
+    want = _run(Strobe128(b"proto", native=False), ops)[40:]
+    assert _run(c, ops[40:]) == want
+    c.restore(snap)                      # the same object, its view intact
+    assert c.snapshot() == snap
+    assert _run(c, ops[40:]) == want
+    for other in (Strobe128(b"other"), Strobe128(b"other", native=False)):
+        other.restore(snap)
+        assert _run(other, ops[40:]) == want
+    with pytest.raises(ValueError):
+        c.restore((snap[0][:199],) + snap[1:])
+
+
+def test_c_core_build_failure_raises(tmp_path, monkeypatch):
+    from vpin_tpu_torch.transcript import Strobe128, _native
+    bad = tmp_path / "keccak.c"
+    bad.write_text("this is not C\n")
+    monkeypatch.setattr(_native, "_LIB", None)
+    monkeypatch.setattr(_native, "SOURCE", bad)
+    monkeypatch.setattr(_native, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="gcc exit"):
+        Strobe128(b"proto")
+    monkeypatch.setattr(_native.shutil, "which", lambda name: None)
+    with pytest.raises(RuntimeError, match="gcc not found"):
+        Strobe128(b"proto")
+    assert not list((tmp_path / "build").glob("*.so"))
+    # the plain version needs no build
+    assert Strobe128(b"proto", native=False).prf(8, False) == \
+        Strobe128(b"proto", native=False).prf(8, False)

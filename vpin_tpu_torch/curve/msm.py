@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..field.prime_field import L_MODULUS
+from ..parallel.ops import sharded_msm_digits
 from . import cuda_edwards
 from .ristretto import PointE, take
 
@@ -53,7 +54,8 @@ def msm_digits(group, table: PointE, digits: torch.Tensor) -> PointE:
     """MSM through a prebuilt digit table (kernel K4's ``ed_msm``).
 
     digits: (rows, n, 32) or (n, 32) integer tensor of base-256 digits, with
-    n at most the table's width; the first n columns are summed.  Returns
+    n at most the table's width; the first n columns are summed.  The rows
+    split over the active mesh when one is set (parallel/ops.py).  Returns
     PointE (rows,), or one point for 2-D digits."""
     squeeze = digits.dim() == 2
     if squeeze:
@@ -62,7 +64,9 @@ def msm_digits(group, table: PointE, digits: torch.Tensor) -> PointE:
         raise ValueError(f"msm_digits: {digits.shape[-1]} windows, want "
                          f"{N_WINDOWS}")
     digits = digits.to(device=table.device, dtype=torch.uint8)
-    out = PointE(*cuda_edwards.ed_msm(group, tuple(table), digits))
+    out = sharded_msm_digits(group, table, digits)
+    if out is None:
+        out = PointE(*cuda_edwards.ed_msm(group, tuple(table), digits))
     return take(out, 0) if squeeze else out
 
 

@@ -5,7 +5,8 @@ Port of vpin_tpu/poly/dense.py (reference Spartan/src/dense_mlpoly.rs):
     Montgomery form on the device; binding a variable is one batched
     expression of K1 products;
   * smaller tables live as host int lists, where a round over a few
-    thousand entries beats the launches.
+    thousand entries beats the launches, unless a mesh is active: then
+    every table is a tensor and binds split over it (parallel/ops.py).
 HOST_POLY_MAX has the reference's value, so each size takes the same route
 in both packages; it is read at call time, so tests can lower it.  Both
 routes give the same protocol values (exact arithmetic mod l).
@@ -21,14 +22,17 @@ import torch
 from ..device import resolve_device
 from ..field import FQ, L_MODULUS
 from ..field import limbs as L
+from ..parallel.mesh import get_mesh
+from ..parallel.ops import sharded_bound_top
 
 #: tables at or below this length use host int lists
 HOST_POLY_MAX = 8192
 
 
 def host_tables_wanted(n: int) -> bool:
-    """Host backend for a table of length n?"""
-    return n <= HOST_POLY_MAX
+    """Host backend for a table of length n?  Tensors win when a mesh is
+    active (so that the sharded entries run) or the table is large."""
+    return n <= HOST_POLY_MAX and get_mesh() is None
 
 
 def ints_to_dev(vals: Sequence[int], device=None) -> torch.Tensor:
@@ -173,8 +177,16 @@ class DensePoly:
 
 
 def bound_top(Z: torch.Tensor, r: int) -> torch.Tensor:
-    """Bind the top variable of an (n, 8) table to r: lo + r (hi - lo)."""
+    """Bind the top variable of an (n, 8) table to r: lo + r (hi - lo),
+    the half axis split over the active mesh when one is set."""
+    out = sharded_bound_top(Z, r)
+    if out is not None:
+        return out
     n = Z.shape[0] // 2
-    lo, hi = Z[:n], Z[n:]
-    r_dev = FQ.to_mont([r], Z.device)[0]
+    return bind_halves(Z[:n], Z[n:], FQ.to_mont([r], Z.device)[0])
+
+
+def bind_halves(lo: torch.Tensor, hi: torch.Tensor,
+                r_dev: torch.Tensor) -> torch.Tensor:
+    """lo + r (hi - lo) for a Montgomery scalar r on their device."""
     return FQ.add(lo, FQ.mul(r_dev, FQ.sub(hi, lo)))

@@ -6,7 +6,7 @@ sparse_mlpoly.rs:440-500):
     value codebook (gadget matrices draw their values from a tiny set);
   * multiply_vec / compute_eval_table group the entries of every row (resp.
     column) with the same nonzero count into one (m, k) gather, K1 product
-    and tree sum;
+    and tree sum, its rows split over the active mesh when one is set;
   * evaluate() contracts val * eq_rx[row] * eq_ry[col].
 Instance::new padding semantics (pow2 cons/vars, input-column shift) follow
 lib.rs:146-244.  Small instances keep every table on the host.
@@ -21,8 +21,16 @@ import torch
 
 from ..field import FQ
 from ..field.prime_field import L_MODULUS as L
+from ..parallel.ops import sharded_regular_reduce
 from ..poly.dense import (DensePoly, eq_evals, eq_evals_host,
                           host_tables_wanted, ints_to_dev)
+
+
+def regular_reduce(vals: torch.Tensor, idx: torch.Tensor,
+                   z: torch.Tensor) -> torch.Tensor:
+    """out[s] = sum_k vals[s, k] * z[idx[s, k]]: vals (m, k, 8), idx (m, k)
+    -> (m, 8), one K1 product and a tree sum."""
+    return FQ.sum_reduce(FQ.mul(vals, z[idx]), axis=1)
 
 
 def _next_pow2(n: int) -> int:
@@ -117,14 +125,17 @@ class SparseMat:
 
     def _reduce_buckets(self, buckets, table: torch.Tensor,
                         out_len: int) -> torch.Tensor:
-        """sum_k val * table[idx] per segment, scattered into (out_len, 8)."""
+        """sum_k val * table[idx] per segment, scattered into (out_len, 8);
+        a bucket's segments split over the active mesh when one is set."""
         dev = table.device
         book = self._book_mont(dev)
         out = FQ.zeros((out_len,), dev)
         for segs, idx, code in buckets:
             vals = book[torch.as_tensor(code, device=dev)]
-            gathered = table[torch.as_tensor(idx, device=dev)]
-            part = FQ.sum_reduce(FQ.mul(vals, gathered), axis=1)
+            at = torch.as_tensor(idx, device=dev)
+            part = sharded_regular_reduce(vals, at, table, len(segs))
+            if part is None:
+                part = regular_reduce(vals, at, table)
             out[torch.as_tensor(segs, device=dev)] = part
         return out
 

@@ -6,7 +6,9 @@ and the binding of the tables run as batched tensor expressions of K1
 products over the halved tables; the per-round protocol (UniPoly
 interpolation, Pedersen commitments, DotProductProof) is exact host
 arithmetic.  The non-ZK sumcheck (SPARK's product circuits) shares the
-round sums.
+round sums.  Under an active mesh the sumchecks' round sums and binds split
+over it (parallel/ops.py); SPARK's product trees, which call round_sums and
+bind_tables directly, do not, as in vpin_tpu.
 """
 
 from __future__ import annotations
@@ -21,7 +23,9 @@ from ..curve.rpoint import RPoint, decompress_many
 from ..field import FQ
 from ..field.prime_field import L_MODULUS as L
 from ..nizk.sigma import DotProductProof, commit1, commitN
-from ..poly.dense import DensePoly
+from ..parallel.mesh import get_mesh
+from ..parallel.ops import sharded_round_evals
+from ..poly.dense import DensePoly, bound_top
 from ..transcript.merlin import Transcript
 from ..utils.checkpoint import ROUNDS_PER_CHECKPOINT
 from ..utils.errors import verify_guard
@@ -104,10 +108,15 @@ def round_sums(kind: str, tables: Sequence[torch.Tensor]) -> torch.Tensor:
       cubic_additive  sum A*(B*C - D) at t = 0, 2, 3
     where a table at t is lo + t (hi - lo).  The points t are stacked on a
     leading axis, so each product is one K1 launch over all of them."""
-    F = FQ
     n = tables[0].shape[-2] // 2
-    los = [t[..., :n, :] for t in tables]
-    his = [t[..., n:, :] for t in tables]
+    return round_sums_split(kind, [t[..., :n, :] for t in tables],
+                            [t[..., n:, :] for t in tables])
+
+
+def round_sums_split(kind: str, los: Sequence[torch.Tensor],
+                     his: Sequence[torch.Tensor]) -> torch.Tensor:
+    """``round_sums`` over tables given as their lo and hi halves."""
+    F = FQ
     at2 = [F.sub(F.add(h, h), lo) for lo, h in zip(los, his)]
     if kind == "quad":
         pts = [torch.stack([lo, v2]) for lo, v2 in zip(los, at2)]
@@ -126,8 +135,12 @@ def round_sums(kind: str, tables: Sequence[torch.Tensor]) -> torch.Tensor:
 
 
 def round_evals(kind: str, tables: Sequence[torch.Tensor]) -> List[int]:
-    """``round_sums`` of (2n, 8) tables as host ints."""
-    return [int(v) for v in FQ.from_mont(round_sums(kind, tables))]
+    """``round_sums`` of (2n, 8) tables as host ints, the half axis split
+    over the active mesh when one is set (parallel/ops.py)."""
+    sums = sharded_round_evals(kind, tables)
+    if sums is None:
+        sums = round_sums(kind, tables)
+    return [int(v) for v in FQ.from_mont(sums)]
 
 
 def round_evals_host(kind: str, tabs: Sequence[List[int]]) -> List[int]:
@@ -169,6 +182,15 @@ def bind_tables(tables: Sequence[torch.Tensor], r: int) -> List[torch.Tensor]:
     lo, hi = T[..., :n, :], T[..., n:, :]
     r_dev = F.to_mont([r], T.device)[0]
     return list(F.add(lo, F.mul(r_dev, F.sub(hi, lo))).unbind(0))
+
+
+def bind_polys(tables: Sequence[torch.Tensor], r: int) -> List[torch.Tensor]:
+    """The sumchecks' binds of (2n, 8) tables: ``bind_tables`` in one
+    launch, or under an active mesh each table's ``bound_top``, whose half
+    axis splits over it (as vpin_tpu binds each DensePoly there)."""
+    if get_mesh() is None:
+        return bind_tables(tables, r)
+    return [bound_top(t, r) for t in tables]
 
 
 # ----------------------------------------------------------------------
@@ -223,7 +245,7 @@ class SumcheckInstanceProof:
                 for p in ps:
                     p.bound_poly_var_top(r_j)
             else:
-                for p, t in zip(ps, bind_tables([p.Z for p in ps], r_j)):
+                for p, t in zip(ps, bind_polys([p.Z for p in ps], r_j)):
                     p.Z = t
             e = poly.evaluate(r_j)
             polys.append(poly.compress())
@@ -319,7 +341,7 @@ class ZKSumcheckInstanceProof:
                 for p in polys:
                     p.bound_poly_var_top(r_j)
                 return [p.Zh for p in polys]
-            return bind_tables(tabs, r_j)
+            return bind_polys(tabs, r_j)
 
         start = 0
         snap = ckpt.load(ckpt_key) if ckpt is not None else None

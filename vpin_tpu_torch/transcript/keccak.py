@@ -2,11 +2,12 @@
 
 The permutation of vpin_tpu/transcript/keccak.py.  It underlies the
 STROBE-128 sponge of the merlin transcript; the transcript is the serial
-Fiat-Shamir spine and stays on the host.  vpin_tpu speeds it with an
-optional C core; the port has none, so the rounds run as one generated
-straight-line Python function over 25 local lanes (no per-lane calls or
-index arithmetic), several times the speed of the looped form.  Validated
-against SHA3-256 test vectors.
+Fiat-Shamir spine and stays on the host.  The sponge runs on the C core
+(csrc/keccak.c); this is its plain version, which Strobe128(..., native=
+False) selects: the rounds run as one generated straight-line Python
+function over 25 local lanes (no per-lane calls or index arithmetic),
+several times the speed of the looped form.  Validated against SHA3-256
+test vectors.
 """
 
 from __future__ import annotations

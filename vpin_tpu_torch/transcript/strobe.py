@@ -1,13 +1,18 @@
 """STROBE-128 (the merlin subset): AD / meta-AD / PRF / KEY over
 Keccak-f[1600], bit-compatible with merlin's strobe.rs.
 
-Port of vpin_tpu/transcript/strobe.py in pure Python (the reference's
-optional C core is not used); absorb XORs a run of bytes up to the rate's
-end as one integer.
+Port of vpin_tpu/transcript/strobe.py.  The inner byte loops and the
+permutation run in the C core (csrc/keccak.c, built and loaded by
+_native.py); ``native=False`` selects the plain Python version instead
+(keccak.py, and loops here that absorb a run of bytes up to the rate's end
+as one integer).  Both give the same bytes.
 """
 
 from __future__ import annotations
 
+import ctypes
+
+from . import _native
 from .keccak import keccak_f1600
 
 FLAG_I = 1
@@ -21,20 +26,43 @@ _R = 166  # STROBE-128 rate over keccak-f[1600] (168 minus 2 reserved bytes)
 
 
 class Strobe128:
-    def __init__(self, protocol_label: bytes):
+    """STROBE-128 over a 200-byte state; ``native`` picks the C core (the
+    default) or the plain Python version."""
+
+    def __init__(self, protocol_label: bytes, native: bool = True):
         st = bytearray(200)
         st[0:6] = bytes([1, _R + 2, 1, 0, 1, 96])
         st[6:18] = b"STROBEv1.0.2"
-        keccak_f1600(st)
         self.state = st
+        self._lib = _native.load() if native else None
+        if self._lib is not None:
+            # the C core works on the state in place, through this view
+            self._posbuf = (ctypes.c_int32 * 2)()
+            self._stview = (ctypes.c_ubyte * 200).from_buffer(st)
+            self._lib.keccak_f1600(self._stview)
+        else:
+            keccak_f1600(st)
         self.pos = 0
         self.pos_begin = 0
         self.cur_flags = 0
         self.meta_ad(protocol_label, False)
 
+    # -- the C core ------------------------------------------------------
+
+    def _native(self, fn, *args) -> None:
+        """One call of the C core with pos and pos_begin passed through."""
+        self._posbuf[0] = self.pos
+        self._posbuf[1] = self.pos_begin
+        fn(self._stview, self._posbuf, *args)
+        self.pos = self._posbuf[0]
+        self.pos_begin = self._posbuf[1]
+
     # -- internals -----------------------------------------------------
 
     def _run_f(self) -> None:
+        if self._lib is not None:
+            self._native(self._lib.strobe_run_f)
+            return
         self.state[self.pos] ^= self.pos_begin
         self.state[self.pos + 1] ^= 0x04
         self.state[_R + 1] ^= 0x80
@@ -43,6 +71,10 @@ class Strobe128:
         self.pos_begin = 0
 
     def _absorb(self, data: bytes) -> None:
+        if self._lib is not None:
+            data = bytes(data)
+            self._native(self._lib.strobe_absorb, data, len(data))
+            return
         # XOR as much as fits before the next permutation at once, as one
         # integer (byte for byte the same as a loop over the bytes)
         i, n = 0, len(data)
@@ -58,6 +90,10 @@ class Strobe128:
                 self._run_f()
 
     def _overwrite(self, data: bytes) -> None:
+        if self._lib is not None:
+            data = bytes(data)
+            self._native(self._lib.strobe_overwrite, data, len(data))
+            return
         for byte in data:
             self.state[self.pos] = byte
             self.pos += 1
@@ -65,6 +101,10 @@ class Strobe128:
                 self._run_f()
 
     def _squeeze(self, n: int) -> bytes:
+        if self._lib is not None:
+            out = (ctypes.c_ubyte * n)()
+            self._native(self._lib.strobe_squeeze, out, n)
+            return bytes(out)
         out = bytearray(n)
         for i in range(n):
             out[i] = self.state[self.pos]
@@ -98,7 +138,10 @@ class Strobe128:
 
     def restore(self, snap: tuple) -> None:
         state, pos, pos_begin, cur_flags = snap
-        self.state = bytearray(state)
+        if len(state) != 200:
+            raise ValueError("a STROBE state is 200 bytes")
+        # in place: the C core's view aliases this buffer
+        self.state[:] = state
         self.pos = pos
         self.pos_begin = pos_begin
         self.cur_flags = cur_flags
