@@ -102,9 +102,22 @@ Phases:
      more cards, (a) on default_mesh(), else a line saying why not.  One
      card runs its shards in turn, so this checks correctness at full
      width, not speed across cards;
+  10. (run after phase 9, before phase 7) the SPARK prover's memory
+     bounding, its launch counts set to 0 before it and read after it (path
+     ``lowmem``): (a) phase 5's warm conv trace proven again, full SNARK,
+     tape seed 3, with every bounding mode forced (every product circuit
+     lazy; the sumchecks' rounds and binds, hashed leaves, R1CS reductions and
+     evaluation, bound_L and Hyrax digits in chunks of 2^14), byte-equal to
+     phase 5's proofs; (b) phase 6's LeNet-5 trace, its L7 slice exported
+     as the reference's JSON and proven by prove_tag_dir with the full
+     SNARK under the default sizes, verified on the host, 227,976 B as
+     vpin_tpu's, with its prove and verify ms and the card's peak; (c)
+     every K1 and K4 shape of (b) that phase 3 does not hold, held bit for
+     bit against its plain version on the path's own operands (an ed_msm on
+     its first 16 rows) and timed;
   7. each entry's launch count on the main path, mont_pow and ed_msm among
      them (K5's and the elementwise K4 addition's on their own path,
-     msm_bits, in phase 3), and on the paths of phases 6, 8 and 9.
+     msm_bits, in phase 3), and on the paths of phases 6, 8, 9 and 10.
 Each phase prints its wall time.  The line before the last is a JSON object
 with every kernel's numbers (``launches``: phase 5's main path;
 ``path_launches``: each path's); the last is {"ok": true, "device": {...}}.  Any failure raises: the script then
@@ -193,6 +206,7 @@ PATH_ENTRIES = {
     "ckpt": ("mont_mul", "mont_pow"),
     "transport": ("mont_mul", "mont_pow", "e2_add", "e2_scalar_mul"),
     "mesh": ("mont_mul", "mont_pow", "ed_table", "ed_msm"),
+    "lowmem": ("mont_mul", "mont_pow", "ed_table", "ed_msm"),
 }
 # phase 8: the synthetic stock SNARK and NIZK at the repo's one recorded
 # point, produce_synthetic_r1cs(2^16, 2^16, 10, seed=1), tape seed 5, whose
@@ -209,6 +223,17 @@ MESH_SHARDS = 4
 DRYRUN_BYTES = 11840
 MULT_FULL_PROOF_BYTES = 103744
 OPS_FILE = "vpin_tpu_torch/parallel/ops.py"
+# phase 10: the SPARK prover's memory bounding.  (a) forces every mode on
+# phase 5's conv proofs: every product circuit lazy, and the sumchecks'
+# rounds and binds, hashed leaves, R1CS reductions and evaluation, bound_L and Hyrax
+# digits in chunks of BOUND_FORCED elements, under every such size of the
+# 18-mult proof; (b) proves LeNet-5's L7 slice (168 mults, 186 adds) with
+# the full SNARK under the default sizes, whose total vpin_tpu recorded as
+# 227,976 B (artifacts/LENET_PROOFS.md); (c) holds its new K1 and K4 shapes,
+# an ed_msm of more rows on its first HOLD_ROWS
+BOUND_FORCED = 1 << 14
+L7_FULL_BYTES = 227976
+HOLD_ROWS = 16
 _ROOT = Path(__file__).resolve().parent
 ADD_PROOF_BYTES = 6992
 MULT_PROOF_BYTES = 19920
@@ -1490,13 +1515,17 @@ class ShapeLog:
     ``within`` (a file of the repo) only calls made, at any depth, from code
     in that file are recorded."""
 
-    def __init__(self, within: str = None):
+    def __init__(self, within: str = None, host: bool = False):
         from vpin_tpu_torch.curve import cuda_edwards
         from vpin_tpu_torch.field import prime_field
         self.mods = {"ed_table": cuda_edwards, "ed_msm": cuda_edwards,
                      "mont_mul": prime_field}
         self.calls, self.first = {}, {}
         self.within = within
+        # with host, the first operands are kept in host memory, so that
+        # the path's card peak is its own
+        self.copy = ((lambda t: t.detach().to("cpu", copy=True)) if host
+                     else (lambda t: t.clone()))
 
     def _inside(self) -> bool:
         f = sys._getframe(2)
@@ -1521,8 +1550,8 @@ class ShapeLog:
             self.calls[key] = self.calls.get(key, 0) + 1
             if key not in self.first:
                 self.first[key] = tuple(
-                    tuple(c.clone() for c in a) if isinstance(a, tuple)
-                    else a.clone() if hasattr(a, "clone") else a
+                    tuple(self.copy(c) for c in a) if isinstance(a, tuple)
+                    else self.copy(a) if hasattr(a, "clone") else a
                     for a in args)
             return fn(*args)
         return wrapper
@@ -1540,11 +1569,13 @@ class ShapeLog:
 
 def hold_new_shapes(torch, dev, rate, shapes: ShapeLog, held: set,
                     label: str = "stock path", every_mul: bool = False,
-                    rows: list = None) -> dict:
+                    rows: list = None, max_rows: int = None) -> dict:
     """Each K4 shape of the path outside ``held`` (phase 3's) and its
     largest mont_mul batch (every one with ``every_mul``), on the path's own
     operands: kernel against plain, timed, with its bound and its calls on
-    the path.  Appends each shape's numbers to ``rows`` when given.  Returns
+    the path.  With ``max_rows``, an ed_msm of more rows is held on its
+    first max_rows rows (the plain version's time) and timed at its whole
+    shape.  Appends each shape's numbers to ``rows`` when given.  Returns
     the largest error per entry."""
     from vpin_tpu_torch.curve import cuda_edwards as CE
     from vpin_tpu_torch.curve.ristretto import RISTRETTO as R
@@ -1558,7 +1589,10 @@ def hold_new_shapes(torch, dev, rate, shapes: ShapeLog, held: set,
         if key in held or (name == "mont_mul" and key != big
                            and not (every_mul and key in muls)):
             continue
-        args = shapes.first[key]
+        args = tuple(tuple(c.to(dev) for c in a) if isinstance(a, tuple)
+                     else a.to(dev) if hasattr(a, "to") else a
+                     for a in shapes.first[key])
+        held_rows = ""
         if name == "ed_table":
             fn = lambda: CE.ed_table(R, args[1])                  # noqa: E731
             plain = lambda: CE.ed_table_plain(R, args[1])         # noqa: E731
@@ -1566,9 +1600,12 @@ def hold_new_shapes(torch, dev, rate, shapes: ShapeLog, held: set,
             bnd, by = bound_ms(255 * m * MONT_PER_ED_ADD * MUL32_PER_MONT_P,
                                128 * m + 256 * 128 * m, rate)
         elif name == "ed_msm":
-            fn = lambda: CE.ed_msm(R, args[1], args[2])           # noqa: E731
-            plain = lambda: CE.ed_msm_plain(R, args[1], args[2])  # noqa: E731
+            cut = args[2][:max_rows] if max_rows else args[2]
+            fn = lambda: CE.ed_msm(R, args[1], cut)               # noqa: E731
+            plain = lambda: CE.ed_msm_plain(R, args[1], cut)      # noqa: E731
             bnd, by = msm_bound(torch, args[2], rate)
+            if cut.shape[0] < args[2].shape[0]:
+                held_rows = f" (held on its first {cut.shape[0]} rows)"
         else:
             fn = lambda: mont_mul(args[0], args[1], FQ)           # noqa: E731
             n = key[2]
@@ -1587,11 +1624,13 @@ def hold_new_shapes(torch, dev, rate, shapes: ShapeLog, held: set,
         err[name] = max(err[name], max_abs_err(
             torch, got, [w.reshape(g.shape) for g, w in zip(got, want)]))
         del got, want
+        if held_rows:
+            fn = lambda: CE.ed_msm(R, args[1], args[2])           # noqa: E731
         ms = kernel_ms(torch, fn, launches=3 if name != "mont_mul" else 20,
                        repeats=3)
         log(f"{label} shape {key}: {shapes.calls[key]} calls; bit-equal "
-            f"to plain on the path's operands; kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.1f} ms, bound {bnd:.4f} ms ({by})")
+            f"to plain on the path's operands{held_rows}; kernel {ms:.4f} "
+            f"ms, plain {plain_ms:.1f} ms, bound {bnd:.4f} ms ({by})")
         if rows is not None:
             rows.append(dict(shape=key, calls=shapes.calls[key], ms=ms,
                              plain_ms=plain_ms, bound_ms=bnd, bound_by=by))
@@ -2002,6 +2041,125 @@ def run_mesh(torch, dev, kernels, rate, fin, single):
     return path, err, rows
 
 
+# ----------------------------------------------------------------------
+# phase 10: the SPARK prover's memory bounding, LeNet-5's L7 full SNARK
+# ----------------------------------------------------------------------
+
+def bounding_knobs():
+    """Each memory-bounding size of the prover: (holder, attribute, the
+    forced value of phase 10 (a))."""
+    from vpin_tpu_torch.commit import pedersen
+    from vpin_tpu_torch.poly import dense
+    from vpin_tpu_torch.snark.r1cs import SparseMat
+    from vpin_tpu_torch.spark import product_tree, sparse_mlpoly
+    from vpin_tpu_torch.sumcheck import sumcheck
+    return [(product_tree, "LOW_MEMORY_ELEMS", 0),
+            (sumcheck, "ROUND_CHUNK_ELEMS", BOUND_FORCED),
+            (sparse_mlpoly, "_LEAF_CHUNK", BOUND_FORCED),
+            (SparseMat, "REDUCE_CHUNK_ELEMS", BOUND_FORCED),
+            (dense, "_BOUND_CHUNK_ELEMS", BOUND_FORCED),
+            (pedersen, "_DIGIT_CHUNK_ELEMS", BOUND_FORCED)]
+
+
+def run_lowmem(torch, dev, kernels, rate, fin, single, lenet):
+    """(a) phase 5's warm conv trace proven again, full SNARK, tape seed
+    PROOF_TAPE_SEED, with every memory-bounding mode forced
+    (bounding_knobs): bytes equal to ``single`` (phase 5's proofs) and
+    every product circuit lazy; (b) the L7 slice of phase 6's LeNet-5 trace
+    exported as the reference's JSON and proven by prove_tag_dir with the
+    full SNARK under the default sizes, verified on the host: its bytes
+    L7_FULL_BYTES, its prove and verify ms and the card's peak; the path's
+    launch counts from 0 over (a) and (b); (c) every K1 and K4 shape of (b)
+    that phase 3 does not hold, held bit for bit against its plain version
+    on the path's own operands (an ed_msm on its first HOLD_ROWS rows) and
+    timed.  Returns (the path's launches, the largest error per entry, the
+    new shapes' rows)."""
+    import contextlib
+    import io
+    import tempfile
+    from vpin_tpu_torch.runner import proof_runner as pr
+    from vpin_tpu_torch.spark import product_tree as pt
+    add, mult = pr.trace_args(fin)
+    for name in kernels.LAUNCHES:
+        kernels.LAUNCHES[name] = 0
+    knobs = bounding_knobs()
+    saved = [getattr(m, k) for m, k, _ in knobs]
+    init = pt.BatchedProductCircuits.__init__
+    circuits = []
+
+    def watch(self, inputs):
+        init(self, inputs)
+        circuits.append((self.K, self.n, self.low_memory))
+
+    pt.BatchedProductCircuits.__init__ = watch
+    pr.RECORD = []
+    try:
+        for m, k, v in knobs:
+            setattr(m, k, v)
+        st_add = pr.prove_point_add(*add, tape_seed=PROOF_TAPE_SEED,
+                                    quiet=True, device=dev)
+        st_mult = pr.prove_point_mult(*mult, tape_seed=PROOF_TAPE_SEED,
+                                      quiet=True, device=dev)
+        blobs = [b for _, b in pr.RECORD]
+    finally:
+        pr.RECORD = None
+        for (m, k, _), v in zip(knobs, saved):
+            setattr(m, k, v)
+    forced = circuits[:]
+    require(blobs == single["bytes"],
+            "the conv proofs with every bounding mode forced differ from "
+            "phase 5's")
+    require(forced and all(lazy for _, _, lazy in forced),
+            f"a product circuit was not lazy under LOW_MEMORY_ELEMS 0: "
+            f"{forced}")
+    log(f"(a) conv full SNARK, every bounding mode forced ("
+        + ", ".join(f"{k} {v}" for _, k, v in knobs)
+        + f"): add {len(blobs[0])} B, mult {len(blobs[1])} B, byte-equal "
+        f"to phase 5's, verified; prove_add_ms {st_add.gen_ms} (phase 5: "
+        f"{single['add']['gen_ms']}), prove_mult_ms {st_mult.gen_ms} "
+        f"({single['mult']['gen_ms']}); {len(forced)} product circuits, "
+        f"all lazy")
+
+    msl, asl = lenet.layer_slices["L7"]
+    circuits.clear()
+    fresh_generators()
+    with tempfile.TemporaryDirectory() as tmp:
+        lenet.trace.export_json(f"{tmp}/L7", mult_slice=msl, add_slice=asl)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        try:
+            with ShapeLog(host=True) as shapes, \
+                    contextlib.redirect_stdout(io.StringIO()):
+                total = pr.prove_tag_dir(f"{tmp}/L7", tape_seed=0,
+                                         device=dev, full_snark=True)
+        finally:
+            pt.BatchedProductCircuits.__init__ = init
+        peak = torch.cuda.max_memory_allocated(dev)
+    launched = dict(kernels.LAUNCHES)
+    require(total[0] == L7_FULL_BYTES,
+            f"L7 full SNARK {total[0]} B, want {L7_FULL_BYTES}")
+    log(f"(b) LeNet-5 L7 ({msl[1] - msl[0]} mults, {asl[1] - asl[0]} "
+        f"adds) full SNARK, default sizes: {total[0]} B (vpin_tpu's "
+        f"{L7_FULL_BYTES}), verified; prove_ms {total[1]}, verify_ms "
+        f"{total[2]} (host), card peak {peak / 1e9:.3f} GB; product "
+        f"circuits " + ", ".join(f"{k}x{n}{' lazy' if lazy else ''}"
+                                 for k, n, lazy in circuits))
+    path = path_launches(kernels, "lowmem", launched)
+    held = {("ed_table", BULLET_N), ("ed_table", COMB_N),
+            ("ed_table", COMB_WIDTH), ("ed_msm", 1, BULLET_N, BULLET_N),
+            ("ed_msm", COMB_ROWS, COMB_N, COMB_WIDTH),
+            ("mont_mul", "Fl", 1 << 16), ("mont_mul", "Fl", MONT_LARGE)}
+    rows = []
+    err = hold_new_shapes(torch, dev, rate, shapes, held, label="L7",
+                          every_mul=True, rows=rows, max_rows=HOLD_ROWS)
+    k1 = sorted((r for r in rows if r["shape"][0] == "mont_mul"),
+                key=lambda r: r["shape"][2])
+    log(f"(c) L7's new shapes: {len(rows) - len(k1)} K4, {len(k1)} K1 ("
+        f"{k1[0]['shape'][2]} to {k1[-1]['shape'][2]} products), each "
+        f"bit-equal to plain")
+    return path, err, rows
+
+
 def path_launches(kernels, name: str, launched: dict) -> dict:
     """Require every entry of path ``name`` to have launched on it."""
     idle = [k for k in PATH_ENTRIES[name] if launched[k] == 0]
@@ -2126,7 +2284,7 @@ def main() -> int:
             f"{statistics.median(r[1][key] for r in cnn[1:]):.1f}")
     for name in kernels.LAUNCHES:
         kernels.LAUNCHES[name] = 0
-    run_lenet(torch, dev, table)
+    lenet = run_lenet(torch, dev, table)
     paths["lenet"] = path_launches(kernels, "lenet", dict(kernels.LAUNCHES))
     phase_done(6)
 
@@ -2147,6 +2305,13 @@ def main() -> int:
     for name, e in mesh_err.items():
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], e)
     phase_done(9)
+
+    # -- phase 10 (before phase 7) --
+    paths["lowmem"], low_err, _ = run_lowmem(torch, dev, kernels, mul32_rate,
+                                             results[1][1], single, lenet)
+    for name, e in low_err.items():
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], e)
+    phase_done(10)
 
     # -- phase 7 --
     # K5 and the elementwise K4 addition lie off the main path; their counts

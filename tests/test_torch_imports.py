@@ -1,6 +1,7 @@
-"""The port stands alone: no file of vpin_tpu_torch, nor chip_smoke.py,
-imports JAX or anything of vpin_tpu (checked on the source, by AST, and at
-run time in a fresh interpreter)."""
+"""The port stands alone: no file of vpin_tpu_torch, nor chip_smoke.py, nor
+the port's measuring scripts (scripts/torch_*.py), imports JAX or anything
+of vpin_tpu (checked on the source, by AST, and at run time in a fresh
+interpreter)."""
 
 import ast
 import subprocess
@@ -10,7 +11,9 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-FILES = sorted((ROOT / "vpin_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = (sorted((ROOT / "vpin_tpu_torch").rglob("*.py"))
+         + [ROOT / "chip_smoke.py"]
+         + sorted((ROOT / "scripts").glob("torch_*.py")))
 FORBIDDEN = ("jax", "jaxlib", "vpin_tpu")
 
 
@@ -45,6 +48,14 @@ def test_the_walk_sees_the_package():
     tree = ast.parse("import jax.numpy as jnp\nfrom vpin_tpu.field import FQ\n"
                      "from .field import FQ\n")
     assert list(_imported_modules(tree)) == ["jax.numpy", "vpin_tpu.field"]
+
+
+def test_the_walk_sees_the_measuring_scripts():
+    names = {p.relative_to(ROOT).as_posix() for p in FILES}
+    for script in ("torch_lenet_layer_proofs.py", "torch_layer_memory.py",
+                   "torch_profile_proof.py", "torch_synthetic_profiler.py"):
+        assert f"scripts/{script}" in names
+    assert "scripts/lenet_layer_proofs.py" not in names     # vpin_tpu's
 
 
 def test_no_jax_or_vpin_tpu_at_run_time():

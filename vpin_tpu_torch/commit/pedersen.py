@@ -152,6 +152,13 @@ def hyrax_commit_host(Z_ints: Sequence[int], blinds: List[int],
             for i in range(Lr)]
 
 
+#: scalars whose digits hyrax_commit makes at a time, written into the one
+#: (L, R + 1, 32) digit buffer the MSM reads: a chunk's plain limbs are 32 B
+#: a scalar, 128 MB at 2^22, where SPARK's comb_ops reaches 2^27 scalars at
+#: LeNet L3 (4.3 GB of limbs, and a copy for the blinds' column, unchunked)
+_DIGIT_CHUNK_ELEMS = 1 << 22
+
+
 def hyrax_commit(Z_mont: torch.Tensor, blinds: List[int],
                  gens_n: MultiCommitGens) -> PointE:
     """Row commitments of Z viewed as an (L, R) matrix: every row is one
@@ -162,9 +169,14 @@ def hyrax_commit(Z_mont: torch.Tensor, blinds: List[int],
     if Lr * Rsz != n or gens_n.n != Rsz:
         raise ValueError("hyrax_commit: shapes do not match the gens")
     dev = Z_mont.device
-    digits = digits_from_mont(Z_mont).reshape(Lr, Rsz, 32)
-    bdig = torch.as_tensor(host_digits(blinds), device=dev)[:, None, :]
-    return gens_n.Gh_msm(dev).msm(torch.cat([digits, bdig], dim=1))
+    digits = torch.empty((Lr, Rsz + 1, 32), dtype=torch.uint8, device=dev)
+    step = max(_DIGIT_CHUNK_ELEMS // Rsz, 1)
+    for lo in range(0, Lr, step):
+        hi = min(lo + step, Lr)
+        digits[lo:hi, :Rsz] = digits_from_mont(
+            Z_mont[lo * Rsz:hi * Rsz]).reshape(hi - lo, Rsz, 32)
+    digits[:, Rsz] = torch.as_tensor(host_digits(blinds), device=dev)
+    return gens_n.Gh_msm(dev).msm(digits)
 
 
 def msm_points(scalars: List[int], points: PointE) -> PointE:

@@ -31,11 +31,10 @@ N_WINDOWS = cuda_edwards.MSM_WINDOWS  # 32 windows of 8 bits; l's top are 0
 
 def limbs_to_digits(plain_limbs: torch.Tensor) -> torch.Tensor:
     """Plain (non-Montgomery) scalar limbs (..., 8) -> LSB-first base-256
-    digits (..., 32) uint8."""
-    w = plain_limbs.to(torch.int64) & 0xFFFFFFFF
-    shifts = torch.arange(0, 32, 8, device=w.device)
-    digits = ((w.unsqueeze(-1) >> shifts) & 0xFF).to(torch.uint8)
-    return digits.reshape(plain_limbs.shape[:-1] + (N_WINDOWS,))
+    digits (..., 32) uint8: the limbs' little-endian bytes (the host's and
+    the card's order), a view with no temporaries."""
+    return plain_limbs.contiguous().view(torch.uint8).reshape(
+        plain_limbs.shape[:-1] + (N_WINDOWS,))
 
 
 def host_digits(ints) -> np.ndarray:

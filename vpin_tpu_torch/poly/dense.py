@@ -28,6 +28,12 @@ from ..parallel.ops import sharded_bound_top
 #: tables at or below this length use host int lists
 HOST_POLY_MAX = 8192
 
+#: entries of Z that bound_L multiplies and sums at a time (whole rows): a
+#: chunk's K1 products and the int64 words of its sum tree come to about
+#: 0.4 KB an entry, 1.7 GB at 2^22, where SPARK opens comb_ops of 2^27
+#: entries at LeNet L3; 2^22 / R chunks of about 30 launches a tree level
+_BOUND_CHUNK_ELEMS = 1 << 22
+
 
 def host_tables_wanted(n: int) -> bool:
     """Host backend for a table of length n?  Tensors win when a mesh is
@@ -168,7 +174,13 @@ class DensePoly:
                         for i in range(L_size)) % L_MODULUS
                     for j in range(R_size)]
         M = self.Z.reshape(L_size, R_size, L.N_LIMBS)
-        return FQ.sum_reduce(FQ.mul(L_vec[:, None, :], M), axis=0)
+        step = 1 << (max(_BOUND_CHUNK_ELEMS // R_size, 1).bit_length() - 1)
+        out = None
+        for lo in range(0, L_size, step):
+            part = FQ.sum_reduce(FQ.mul(L_vec[lo:lo + step, None, :],
+                                        M[lo:lo + step]), axis=0)
+            out = part if out is None else FQ.add(out, part)
+        return out
 
     def index(self, i: int) -> int:
         if self.is_host:

@@ -14,7 +14,7 @@ lib.rs:146-244.  Small instances keep every table on the host.
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -123,20 +123,35 @@ class SparseMat:
 
     # -- bucketed reductions --------------------------------------------
 
+    #: index elements (nonzeros) a reduction or evaluation handles at a
+    #: time: a chunk's gathers, K1 products and the int64 words of its field
+    #: sums come to about 0.5 KB an element, 2 GB at 2^22, where LeNet L5's
+    #: matrices hold 2^25 nonzeros each (16 GB unchunked); a chunk costs
+    #: about 30 launches a level of its sum tree, so larger chunks gain
+    #: little.  (vpin_tpu's 2^20 was set by the TPU padding the 16-limb
+    #: minor axis 8x; the card does not pad.)
+    REDUCE_CHUNK_ELEMS = 1 << 22
+
     def _reduce_buckets(self, buckets, table: torch.Tensor,
                         out_len: int) -> torch.Tensor:
         """sum_k val * table[idx] per segment, scattered into (out_len, 8);
-        a bucket's segments split over the active mesh when one is set."""
+        a bucket's segments run in chunks of REDUCE_CHUNK_ELEMS index
+        elements (rounded down to a power of two of segments), each split
+        over the active mesh when one is set."""
         dev = table.device
         book = self._book_mont(dev)
         out = FQ.zeros((out_len,), dev)
         for segs, idx, code in buckets:
-            vals = book[torch.as_tensor(code, device=dev)]
-            at = torch.as_tensor(idx, device=dev)
-            part = sharded_regular_reduce(vals, at, table, len(segs))
-            if part is None:
-                part = regular_reduce(vals, at, table)
-            out[torch.as_tensor(segs, device=dev)] = part
+            m, k = idx.shape
+            rows = 1 << (max(self.REDUCE_CHUNK_ELEMS // k, 1).bit_length() - 1)
+            for lo in range(0, m, rows):
+                hi = min(lo + rows, m)
+                vals = book[torch.as_tensor(code[lo:hi], device=dev)]
+                at = torch.as_tensor(idx[lo:hi], device=dev)
+                part = sharded_regular_reduce(vals, at, table, hi - lo)
+                if part is None:
+                    part = regular_reduce(vals, at, table)
+                out[torch.as_tensor(segs[lo:hi], device=dev)] = part
         return out
 
     def multiply_vec(self, num_cols: int, z: torch.Tensor) -> torch.Tensor:
@@ -181,13 +196,22 @@ class SparseMat:
             total += cb[k] * eq_rx[r] % L * eq_ry[c]
         return total % L
 
-    def evaluate(self, eq_rx: torch.Tensor, eq_ry: torch.Tensor) -> int:
+    def evaluate(self, eq_rx: torch.Tensor, eq_ry: torch.Tensor,
+                 chunk: Optional[int] = None) -> int:
+        """sum val * eq_rx[row] * eq_ry[col] over the nonzeros, in pieces of
+        ``chunk`` (REDUCE_CHUNK_ELEMS by default)."""
         dev = eq_rx.device
-        vals = self._book_mont(dev)[torch.as_tensor(self.codes, device=dev)]
-        rows = torch.as_tensor(self.rows, device=dev)
-        cols = torch.as_tensor(self.cols, device=dev)
-        prod = FQ.mul(FQ.mul(vals, eq_rx[rows]), eq_ry[cols])
-        return int(FQ.from_mont(FQ.sum_reduce(prod, axis=0)))
+        book = self._book_mont(dev)
+        chunk = chunk or self.REDUCE_CHUNK_ELEMS
+        total = FQ.zeros((), dev)
+        for lo in range(0, self.nnz, chunk):
+            hi = min(lo + chunk, self.nnz)
+            vals = book[torch.as_tensor(self.codes[lo:hi], device=dev)]
+            rows = torch.as_tensor(self.rows[lo:hi], device=dev)
+            cols = torch.as_tensor(self.cols[lo:hi], device=dev)
+            prod = FQ.mul(FQ.mul(vals, eq_rx[rows]), eq_ry[cols])
+            total = FQ.add(total, FQ.sum_reduce(prod, axis=0))
+        return int(FQ.from_mont(total))
 
 
 class R1CSInstance:

@@ -9,7 +9,10 @@ Montgomery limbs; every field product is kernel K1, and each round slices
 the live halves directly (the reference's masked fixed-shape kernels only
 bounded XLA compiles; field values are canonical, so the bytes are the
 same).  Unlike vpin_tpu, small instances do not move to host ints: on the
-H100 the 16-add proof's SPARK is as fast on tensors.
+H100 the 16-add proof's SPARK is as fast on tensors.  As in vpin_tpu, large
+circuits keep only their leaves (LOW_MEMORY_ELEMS) and the rounds and binds
+run in chunks (sumcheck.ROUND_CHUNK_ELEMS), so that the card holds LeNet
+L3's SPARK.
 """
 
 from __future__ import annotations
@@ -32,25 +35,56 @@ def _ints(t: torch.Tensor) -> List[int]:
     return [int(v) for v in FQ.from_mont(t).reshape(-1)]
 
 
+#: Above this many stacked leaves (K circuits x n leaves) a
+#: BatchedProductCircuits keeps only its leaves and recomputes a layer from
+#: them when the proof reaches it (vpin_tpu's LOW_MEMORY_ELEMS, the same
+#: default).  The stored stack holds the leaves' size again, 32 B a leaf:
+#: 0.5 GB at the threshold, 0.8 GB for LeNet L6's and L1's 12 x 2^21 ops
+#: leaves and 3.2 GB for L3's 12 x 2^23, all of it resident while layer 0's
+#: sumcheck, the proof's largest, runs.  A recompute costs under n K1
+#: products a circuit, one pass over the leaves a layer.
+LOW_MEMORY_ELEMS = 1 << 24
+
+
+def _step(left: torch.Tensor, right: torch.Tensor):
+    """One product-tree layer: (K, m) halves -> the next layer's halves."""
+    prod = FQ.mul(left, right)
+    half = prod.shape[1] // 2
+    return prod[:, :half], prod[:, half:]
+
+
 class BatchedProductCircuits:
-    """K product circuits over equal-length inputs, layers stacked."""
+    """K product circuits over equal-length inputs, stacked: every layer
+    stored, or above LOW_MEMORY_ELEMS leaves only the leaves, each layer
+    recomputed from them when asked for (``low_memory``)."""
 
     def __init__(self, inputs):
         """inputs: (K, n, 8) Montgomery tensor of hashed leaf values, n a
         power of two."""
         K, n = inputs.shape[0], inputs.shape[1]
         self.K, self.n = K, n
-        self.left_layers: List = [inputs[:, : n // 2]]
-        self.right_layers: List = [inputs[:, n // 2:]]
-        for _ in range(n.bit_length() - 2):
-            prod = FQ.mul(self.left_layers[-1], self.right_layers[-1])
-            half = prod.shape[1] // 2
-            self.left_layers.append(prod[:, :half])
-            self.right_layers.append(prod[:, half:])
+        self.num_layers = n.bit_length() - 1
+        self.low_memory = K * n > LOW_MEMORY_ELEMS
+        self.inputs = inputs
+        if self.low_memory:
+            return
+        self.layers = [(inputs[:, : n // 2], inputs[:, n // 2:])]
+        for _ in range(self.num_layers - 1):
+            self.layers.append(_step(*self.layers[-1]))
+
+    def layer(self, i: int):
+        """(left, right) of layer i, stored or recomputed from the leaves."""
+        if not self.low_memory:
+            return self.layers[i]
+        n = self.n
+        left, right = self.inputs[:, : n // 2], self.inputs[:, n // 2:]
+        for _ in range(i):
+            left, right = _step(left, right)
+        return left, right
 
     def evaluate(self) -> List[int]:
-        return _ints(FQ.mul(self.left_layers[-1][:, 0],
-                            self.right_layers[-1][:, 0]))
+        left, right = self.layer(self.num_layers - 1)
+        return _ints(FQ.mul(left[:, 0], right[:, 0]))
 
 
 @dataclass
@@ -72,7 +106,8 @@ class BatchedDotProducts:
 
 class _Tables:
     """The (A, B, C) stacks one batched cubic sumcheck binds: round
-    evaluations and binds over all circuits at once."""
+    evaluations and binds over all circuits at once, in chunks of the half
+    axis (sumcheck.ROUND_CHUNK_ELEMS)."""
 
     def __init__(self, A, B, C):
         self.t = [A, B, C]
@@ -109,9 +144,8 @@ class ProductCircuitEvalProofBatched:
         claims_to_verify = prod.evaluate()
         rand: List[int] = []
 
-        for layer_id in reversed(range(len(prod.left_layers))):
-            A = prod.left_layers[layer_id]
-            B = prod.right_layers[layer_id]
+        for layer_id in reversed(range(prod.num_layers)):
+            A, B = prod.layer(layer_id)
             C = eq_evals(rand, A.device)
             if C.shape[0] != A.shape[1]:
                 raise InternalError("product layer: eq table of the wrong size")

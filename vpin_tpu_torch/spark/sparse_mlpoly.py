@@ -273,32 +273,60 @@ class DerefsEvalProof:
 # hashed multiset layers
 # ----------------------------------------------------------------------
 
+#: leaves hashed a chunk at a time: one chunk's temporaries (its addresses
+#: and timestamps lifted to Montgomery limbs, the K1 products, the int64
+#: words of each field add and sub) come to about 0.6 KB a leaf, 0.6 GB at
+#: 2^20, against the 2^23 ops of LeNet L3 and 2^25 of L5 unchunked; each
+#: chunk costs about 150 launches, 8 chunks a vector at L3.  (vpin_tpu's
+#: 2^18 was set by the TPU padding the 16-limb minor axis 8x; the card
+#: does not pad.)
+_LEAF_CHUNK = 1 << 20
+
+
+def _hash_leaves(addr: np.ndarray, val: torch.Tensor, ts: np.ndarray,
+                 consts, out: torch.Tensor) -> torch.Tensor:
+    """out = ts r_hash^2 + val r_hash + addr - r_multiset, elementwise over
+    host int arrays addr and ts and a Montgomery tensor val, written into
+    ``out`` a chunk of _LEAF_CHUNK at a time."""
+    rh, rh2, rm = consts
+    dev = out.device
+    for lo in range(0, out.shape[0], _LEAF_CHUNK):
+        hi = min(lo + _LEAF_CHUNK, out.shape[0])
+        h = FQ.add(FQ.add(FQ.mul(small_ints_to_dev(ts[lo:hi], dev), rh2),
+                          FQ.mul(val[lo:hi], rh)),
+                   small_ints_to_dev(addr[lo:hi], dev))
+        out[lo:hi] = FQ.sub(h, rm)
+    return out
+
+
 class Layers:
     """Hashed leaves of the (init, read x3, write x3, audit) multisets of
     one address space: h(addr, val, ts) - r_multiset with
-    h = ts r_hash^2 + val r_hash + addr."""
+    h = ts r_hash^2 + val r_hash + addr.  The ops leaves, reads then
+    writes, are hashed into ``ops_out``, (2B, num_ops, 8): rows of the ops
+    circuits' stacked input, so that they are held once."""
 
     def __init__(self, eval_table, addr_ts: AddrTimestamps,
-                 ops_val, r_mem_check: Tuple[int, int]):
+                 ops_val, r_mem_check: Tuple[int, int],
+                 ops_out: torch.Tensor):
         r_hash, r_multiset = r_mem_check
         num_cells = eval_table.shape[0]
         dev = eval_table.device
-        rh, rh2, rm = FQ.to_mont([r_hash, r_hash * r_hash % L, r_multiset],
-                                 dev)
+        consts = FQ.to_mont([r_hash, r_hash * r_hash % L, r_multiset], dev)
 
-        def leaves(addr, val, ts):
-            ts = small_ints_to_dev(ts, dev)
-            h = FQ.add(FQ.add(FQ.mul(ts, rh2), FQ.mul(val, rh)),
-                       small_ints_to_dev(addr, dev))
-            return FQ.sub(h, rm)
+        def leaves(addr, val, ts, out=None):
+            if out is None:
+                out = FQ.zeros((len(addr),), dev)
+            return _hash_leaves(addr, val, ts, consts, out)
 
         ident = np.arange(num_cells, dtype=np.int64)
         self.init_leaves = leaves(ident, eval_table, np.zeros_like(ident))
         self.audit_leaves = leaves(ident, eval_table, addr_ts.audit_ts)
-        self.read_leaves = [leaves(a, v, t) for a, v, t in zip(
-            addr_ts.ops_addr, ops_val, addr_ts.read_ts)]
-        self.write_leaves = [leaves(a, v, t + 1) for a, v, t in zip(
-            addr_ts.ops_addr, ops_val, addr_ts.read_ts)]
+        B = len(addr_ts.ops_addr)
+        for i, (a, v, t) in enumerate(zip(addr_ts.ops_addr, ops_val,
+                                          addr_ts.read_ts)):
+            leaves(a, v, t, ops_out[i])
+            leaves(a, v, t + 1, ops_out[B + i])
 
 
 def _evaluate_many(polys, r: Sequence[int]) -> List[int]:
@@ -484,14 +512,15 @@ class ProductLayerProof:
 
     @staticmethod
     def prove(row_layers: Layers, col_layers: Layers,
+              ops_leaves: torch.Tensor,
               dense: MultiSparseMatPolynomialAsDense, derefs: Derefs,
               evals: List[int], transcript: Transcript):
+        """ops_leaves: the (4B, num_ops, 8) stack of row reads and writes,
+        then col's, whose halves the two Layers hashed their ops into."""
         transcript.append_protocol_name(ProductLayerProof.PROTOCOL)
         B = dense.batch_size
 
-        ops_circ = BatchedProductCircuits(torch.stack(
-            row_layers.read_leaves + row_layers.write_leaves
-            + col_layers.read_leaves + col_layers.write_leaves))
+        ops_circ = BatchedProductCircuits(ops_leaves)
         ops_evals = ops_circ.evaluate()
         mem_circ = BatchedProductCircuits(torch.stack(
             [row_layers.init_leaves, row_layers.audit_leaves,
@@ -582,10 +611,17 @@ class PolyEvalNetworkProof:
     def prove(dense, derefs, mem_rx, mem_ry, r_mem_check, evals, gens,
               transcript, tape):
         transcript.append_protocol_name(PolyEvalNetworkProof.PROTOCOL)
-        row_layers = Layers(mem_rx, dense.row, derefs.row_ops_val, r_mem_check)
-        col_layers = Layers(mem_ry, dense.col, derefs.col_ops_val, r_mem_check)
+        # the ops circuits' input, row reads and writes then col's, which
+        # the two spaces' leaves are hashed into
+        B = dense.batch_size
+        ops = FQ.zeros((4 * B, dense.N), dense.device)
+        row_layers = Layers(mem_rx, dense.row, derefs.row_ops_val,
+                            r_mem_check, ops[:2 * B])
+        col_layers = Layers(mem_ry, dense.col, derefs.col_ops_val,
+                            r_mem_check, ops[2 * B:])
         proof_prod, rand_mem, rand_ops = ProductLayerProof.prove(
-            row_layers, col_layers, dense, derefs, evals, transcript)
+            row_layers, col_layers, ops, dense, derefs, evals, transcript)
+        del row_layers, col_layers, ops   # free the leaves for the hash layer
         proof_hash = HashLayerProof.prove((rand_mem, rand_ops), dense, derefs,
                                           gens, transcript, tape)
         return PolyEvalNetworkProof(proof_prod, proof_hash)

@@ -100,6 +100,26 @@ class UniPoly:
 # round evaluations and binds
 # ----------------------------------------------------------------------
 
+#: table elements (leading batch x half-table positions) whose round sums
+#: or binds are computed at a time (vpin_tpu's ROUND_CHUNK): a chunk's points
+#: 0, 2 and 3, their K1 products and the int64 words of each field add come
+#: to about 0.5 KB an element of each table, 3 GB at 2^21 for three, where
+#: layer 0 of LeNet L3's product circuits has 12 x 2^21 and L5's sat proof
+#: 2^24 (40 GB and more unchunked).  Only the first rounds of the large
+#: tables split, so the added launches are few.  (vpin_tpu's 2^17 was set
+#: by the TPU padding the 16-limb minor axis 8x; the card does not pad.)
+ROUND_CHUNK_ELEMS = 1 << 21
+
+
+def _halves(tables: Sequence[torch.Tensor]) -> Tuple[int, int]:
+    """(n, positions a chunk) of tables (..., 2n, 8): a power of two that
+    divides n, ROUND_CHUNK_ELEMS elements across the leading batch."""
+    n = tables[0].shape[-2] // 2
+    lead = max(tables[0][..., 0, 0].numel(), 1)
+    step = 1 << (max(ROUND_CHUNK_ELEMS // lead, 1).bit_length() - 1)
+    return n, min(step, n)
+
+
 def round_sums(kind: str, tables: Sequence[torch.Tensor]) -> torch.Tensor:
     """Round evaluation sums over tables (..., 2n, 8), halved and summed
     along their second-to-last axis, as Montgomery limbs (points, ..., 8):
@@ -107,10 +127,16 @@ def round_sums(kind: str, tables: Sequence[torch.Tensor]) -> torch.Tensor:
       cubic           sum A*B*C at t = 0, 2, 3
       cubic_additive  sum A*(B*C - D) at t = 0, 2, 3
     where a table at t is lo + t (hi - lo).  The points t are stacked on a
-    leading axis, so each product is one K1 launch over all of them."""
-    n = tables[0].shape[-2] // 2
-    return round_sums_split(kind, [t[..., :n, :] for t in tables],
-                            [t[..., n:, :] for t in tables])
+    leading axis, so each product is one K1 launch over all of them; the
+    half axis runs in chunks (ROUND_CHUNK_ELEMS), whose sums add mod l."""
+    n, step = _halves(tables)
+    sums = None
+    for lo in range(0, n, step):
+        part = round_sums_split(
+            kind, [t[..., lo:lo + step, :] for t in tables],
+            [t[..., n + lo:n + lo + step, :] for t in tables])
+        sums = part if sums is None else FQ.add(sums, part)
+    return sums
 
 
 def round_sums_split(kind: str, los: Sequence[torch.Tensor],
@@ -175,13 +201,25 @@ def round_evals_host(kind: str, tabs: Sequence[List[int]]) -> List[int]:
 
 def bind_tables(tables: Sequence[torch.Tensor], r: int) -> List[torch.Tensor]:
     """Bind the top variable of tables (..., 2n, 8) of one shape to r along
-    their second-to-last axis: lo + r (hi - lo), all in one K1 launch."""
+    their second-to-last axis: lo + r (hi - lo), all tables in one K1
+    launch, the half axis in chunks (ROUND_CHUNK_ELEMS) written into the
+    bound tables."""
     F = FQ
-    n = tables[0].shape[-2] // 2
-    T = torch.stack(list(tables))
-    lo, hi = T[..., :n, :], T[..., n:, :]
-    r_dev = F.to_mont([r], T.device)[0]
-    return list(F.add(lo, F.mul(r_dev, F.sub(hi, lo))).unbind(0))
+    n, step = _halves(tables)
+    dev = tables[0].device
+    r_dev = F.to_mont([r], dev)[0]
+
+    def bound(a: int, b: int) -> torch.Tensor:
+        lo = torch.stack([t[..., a:b, :] for t in tables])
+        hi = torch.stack([t[..., n + a:n + b, :] for t in tables])
+        return F.add(lo, F.mul(r_dev, F.sub(hi, lo)))
+
+    if step == n:
+        return list(bound(0, n).unbind(0))
+    out = F.zeros((len(tables),) + tuple(tables[0].shape[:-2]) + (n,), dev)
+    for a in range(0, n, step):
+        out[..., a:a + step, :] = bound(a, a + step)
+    return list(out.unbind(0))
 
 
 def bind_polys(tables: Sequence[torch.Tensor], r: int) -> List[torch.Tensor]:
