@@ -115,9 +115,32 @@ Phases:
      every K1 and K4 shape of (b) that phase 3 does not hold, held bit for
      bit against its plain version on the path's own operands (an ed_msm on
      its first 16 rows) and timed;
+  11. (run after phase 10, before phase 7) the rest of the reference's
+     configurations, the launch counts set to 0 before it and read after it
+     (path ``sweep``): (a) the single-conv sweep E3, filters 3, 5 and 7 on
+     inputs of 32, 64, 128 and 256 (12 tags <filter>_<size>), a cold and a
+     warm request each through run_conv_workload, each with its rLC check,
+     2 f^2 / 2 (f^2 - 1) trace counts, the whole witness held against host
+     arithmetic (check_conv_trace) and 8 output pixels per half against
+     conv_pixels_host, its encrypt_ms, conv_ms and card peak, and at 256 x
+     256 the host work inside conv_ms; (b) the full SNARK of the warm 256 x
+     256 f = 5 and f = 7 traces (50 and 98 mults on the 128-bit gadget, 48
+     and 96 adds), tape seed 3, verified on the host, each of the size its
+     bincode length and its instance's shape give; (c) CNN B-E at 32x32 on
+     phase 6's table (stand-in weights from seed 0), each with its rLC
+     checks, the trace counts of its (fc1_in, fc1_out, pool) and logits
+     exactly equal to a plaintext integer pipeline; (d) CNN E's whole trace
+     proven transparent (658 mults on the 253-bit gadget, 2,336 adds) and
+     verified on the host; (e) one more request of each tag and of each of
+     B-E under a ShapeLog of every K1-K4 entry, whose shapes, with those of
+     (b) and (d), that neither phase 3 nor phases 8-10 hold are held bit for
+     bit against their plain versions on the path's own operands (a batch of more than 2^18
+     pairs, ladders or powers on 2^14 seeded rows, the first and the last
+     among them; an ed_msm on its first 16 rows) and timed against their
+     bounds;
   7. each entry's launch count on the main path, mont_pow and ed_msm among
      them (K5's and the elementwise K4 addition's on their own path,
-     msm_bits, in phase 3), and on the paths of phases 6, 8, 9 and 10.
+     msm_bits, in phase 3), and on the paths of phases 6, 8, 9, 10 and 11.
 Each phase prints its wall time.  The line before the last is a JSON object
 with every kernel's numbers (``launches``: phase 5's main path;
 ``path_launches``: each path's); the last is {"ok": true, "device": {...}}.  Any failure raises: the script then
@@ -183,7 +206,7 @@ PROOF_TAPE_SEED = 3
 # transparent proof sizes of the conv3/32x32 trace: they depend only on the
 # instances' shapes (BENCH_r05.json: 19,920 B for the 18 mults; the 16-add
 # proof measured with vpin_tpu on the CPU).  The full SNARK adds the eval
-# proof, whose size eval_proof_bytes derives from the shapes (BENCH_r05.json:
+# proof, whose size utils/bincode.eval_proof_size derives from the shapes (BENCH_r05.json:
 # 27,240 B for the 16 adds).
 # phase 6: the reference's table size, CNN A and LeNet-5 at full width
 BSGS_M = 3_200_000
@@ -207,6 +230,8 @@ PATH_ENTRIES = {
     "transport": ("mont_mul", "mont_pow", "e2_add", "e2_scalar_mul"),
     "mesh": ("mont_mul", "mont_pow", "ed_table", "ed_msm"),
     "lowmem": ("mont_mul", "mont_pow", "ed_table", "ed_msm"),
+    "sweep": ("mont_mul", "mont_pow", "e2_add", "e2_add_wide", "e2_scalar_mul",
+              "ed_table", "ed_msm"),
 }
 # phase 8: the synthetic stock SNARK and NIZK at the repo's one recorded
 # point, produce_synthetic_r1cs(2^16, 2^16, 10, seed=1), tape seed 5, whose
@@ -234,6 +259,20 @@ OPS_FILE = "vpin_tpu_torch/parallel/ops.py"
 BOUND_FORCED = 1 << 14
 L7_FULL_BYTES = 227976
 HOLD_ROWS = 16
+# phase 11: the rest of the reference's configurations (path ``sweep``):
+# the single-conv sweep E3, filters 3, 5 and 7 on inputs of 32 to 256 (the
+# reference's output folders <filter>_<size>), a cold and a warm request
+# each; the full SNARK of the f = 5 and f = 7 traces of the warm request at
+# SWEEP_PROVE_SIZE (a conv trace depends only on f); CNN B-E at 32x32 and
+# CNN_PROVE's transparent proofs.  A batch of more than PLAIN_CHUNK ladders,
+# pairs or powers is held on HOLD_SAMPLE seeded rows, the first and the
+# last among them
+SWEEP_FILTERS = (3, 5, 7)
+SWEEP_SIZES = (32, 64, 128, 256)
+SWEEP_PROVE_SIZE = 256
+CNN_VERSIONS = ("B", "C", "D", "E")
+CNN_PROVE = "E"
+HOLD_SAMPLE = 1 << 14
 _ROOT = Path(__file__).resolve().parent
 ADD_PROOF_BYTES = 6992
 MULT_PROOF_BYTES = 19920
@@ -301,44 +340,6 @@ def bound_ms(mul32: float, nbytes: float, mul32_rate: float):
     t_ops = mul32 / mul32_rate * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
-
-def next_pow2(n: int) -> int:
-    m = 1
-    while m < max(n, 1):
-        m *= 2
-    return m
-
-
-def eval_proof_bytes(num_cons: int, num_vars: int, nnz: int,
-                     batch: int = 3) -> int:
-    """Bincode bytes of the SPARK eval proof of an R1CS instance with these
-    counts (one input): Hyrax rows of the derefs, the product layer (two
-    batched product-circuit proofs) and the hash layer (three
-    PolyEvalProofs).  It gives the golden fixtures' 12,208 and 46,416 B."""
-    log2 = lambda n: n.bit_length() - 1                       # noqa: E731
-    vec = lambda k: 8 + 32 * k                                # noqa: E731
-    cons, nv = next_pow2(max(num_cons, 2)), next_pow2(max(num_vars, 2))
-    cells = 1 << max(log2(cons), log2(2 * nv))
-    N = next_pow2(nnz)
-
-    def polyeval(nvars):                      # bullet L, R; delta, beta, z1, z2
-        return 2 * vec(nvars - nvars // 2) + 4 * 32
-
-    def product_proof(K, leaves, k2):          # layer i has i cubic rounds
-        return 8 + sum(8 + i * vec(3) + 2 * vec(K)
-                       for i in range(log2(leaves))) + 3 * vec(k2)
-
-    ops_vars = log2(N) + log2(next_pow2(5 * batch))
-    mem_vars = log2(cells) + 1
-    derefs_vars = log2(N) + log2(next_pow2(2 * batch))
-    product_layer = (2 * (2 * 32 + 2 * vec(batch)) + 2 * vec(batch)
-                     + product_proof(4, cells, 0)
-                     + product_proof(4 * batch, N, 2 * batch))
-    hash_layer = (2 * (2 * vec(batch) + 32) + 3 * vec(batch)
-                  + polyeval(ops_vars) + polyeval(mem_vars)
-                  + polyeval(derefs_vars))
-    return vec(1 << (derefs_vars // 2)) + product_layer + hash_layer
 
 
 def k1_launches(launched: dict) -> int:
@@ -573,6 +574,22 @@ ADD_SHAPES = (1, 9, 1023, 1024, 2048, 4096, 8192, 16384, 1 << 16,
 # and its one-thread kernel (e2_add_wide, as 1); K3's group kernel
 ADD_LANES = (1, 8)
 LADDER_LANES = (4, 8)
+
+
+def phase3_ladders() -> list:
+    """K3's shapes in phase 3, (ladders, bits, inner, rows, label, plain
+    repeats): the conv3/32x32 path's four, an odd n, 13 ladders with and
+    without bits, and CNN A's decryptions' ladders of c1 by the key."""
+    M, f2 = SIZE * SIZE, FILTER * FILTER
+    return ([(M * f2, 128, f2, M, "rho over windows", 1),
+             (M, 128, 1, M, "rho over outputs", 1),
+             (M * f2, 2, 1, f2, "filter weights", 3),
+             (f2, 2, 1, f2, "the recorded mults", 3),
+             (M - 1, 128, 1, M - 1, "odd n", 1),
+             (13, 128, 1, 13, "13 ladders", 1),
+             (13, 0, 1, 13, "no bits", 1)]
+            + [(n, 253, 1, 1, f"decrypt c1 by the key ({n})", 1)
+               for n in DECRYPT_LADDERS])
 
 
 def lanes_ms(torch, fn, lanes, check, launches, repeats=5, passes=1):
@@ -1215,18 +1232,19 @@ def prove_request(torch, dev, fin):
         prove_point_add, prove_point_mult, trace_args,
     )
     from vpin_tpu_torch.utils import timer
+    from vpin_tpu_torch.utils.bincode import eval_proof_size
     add, mult = trace_args(fin)
 
     def full_size(transparent, matrices):
         A, B, C, nc, nv, _ = matrices
-        return transparent + eval_proof_bytes(
+        return transparent + eval_proof_size(
             nc, nv, max(len(A[0]), len(B[0]), len(C[0])))
 
     mult_full = full_size(MULT_PROOF_BYTES,
                           point_mult.build_matrices(len(mult[0]), 128))
     require(full_size(ADD_PROOF_BYTES, point_addition.build_matrices(
         len(add[0]))) == ADD_FULL_PROOF_BYTES,
-        "eval_proof_bytes disagrees with the 16-add proof of BENCH_r05.json")
+        "eval_proof_size disagrees with the 16-add proof of BENCH_r05.json")
     sizes = {False: (ADD_PROOF_BYTES, MULT_PROOF_BYTES),
              True: (ADD_FULL_PROOF_BYTES, mult_full)}
     out = {}
@@ -1372,44 +1390,18 @@ def check_decrypt(torch, dev, table):
         f"{table.last_rounds} giant-step rounds, {ms:.1f} ms")
 
 
-def cnn_plain_logits(image, weights, k: int = 4):
-    """CNN A on plaintext integers with the fixed-point steps of the
-    encrypted pipeline: conv3 (pad 1) by the integer filter, ReLU, k x k
-    window sums times fixed_point(1/k^2), shift 26, FC1 with the encoded
-    weights plus the encoded bias, ReLU, shift 32, FC2, ReLU."""
-    from vpin_tpu_torch.nn import fixed_point as fp
-    from vpin_tpu_torch.nn.models import CONV_FILTERS
-    x = fp.encode(fp.min_max_scaling(image)).astype(np.int64)
-    filt = CONV_FILTERS[3]
-    H = x.shape[0]
-    xp = np.pad(x, 1)
-    conv = sum(int(filt[a, b]) * xp[a:a + H, b:b + H]
-               for a in range(3) for b in range(3))
-    act = np.maximum(0, conv)
-    pooled = act.reshape(H // k, k, H // k, k).sum(axis=(1, 3)) \
-        * fp.pool_reciprocal_fixed(k)
-    v = fp.shift(pooled.reshape(-1), 26).astype(np.int64)
-
-    def fc(v, layer):
-        w = fp.encode(weights[f"weight_{layer}"]).astype(np.int64)
-        b = fp.encode(weights[f"bias_{layer}"]).astype(np.int64)
-        return v @ w + b
-
-    h = fp.shift(np.maximum(0, fc(v, "fc1")), 32).astype(np.int64)
-    return np.maximum(0, fc(h, "fc2"))
-
-
 def run_cnn_requests(torch, dev, table):
     """CNN_REQUESTS CNN A requests through run_cnn_workload, each held to
     its trace counts and the plaintext pipeline's logits."""
     from vpin_tpu_torch import kernels
     from vpin_tpu_torch.nn.elgamal import KeyPair
+    from vpin_tpu_torch.nn.host_check import cnn_plain_logits
     from vpin_tpu_torch.nn.models import make_random_weights, run_cnn_workload
     key = KeyPair.generate(random.Random(0), device=dev)
     img = np.random.RandomState(0).uniform(0.0, 1.0, (SIZE, SIZE)).astype(
         np.float32)
     weights = make_random_weights(*CNN_FC, seed=0)
-    want = cnn_plain_logits(img, weights)
+    want = cnn_plain_logits(img, weights, "A")
     results = []
     for req in range(CNN_REQUESTS):
         before = dict(kernels.LAUNCHES)
@@ -1439,14 +1431,16 @@ def run_cnn_requests(torch, dev, table):
     return results
 
 
-def prove_cnn(torch, dev, res):
-    """The transparent CP-SNARK proofs of one CNN A request's whole trace,
-    verified on the host.  The mult proof takes the 253-bit gadget when an
-    rLC-combined FC scalar needs more than 128 bits."""
+def prove_cnn(torch, dev, res, version: str = "A"):
+    """The transparent CP-SNARK proofs of one CNN request's whole trace,
+    verified on the host, each of the size its instance's shape gives
+    (utils/bincode.sat_proof_size).  The mult proof takes the 253-bit
+    gadget when an rLC-combined FC scalar needs more than 128 bits."""
     from vpin_tpu_torch.gadgets import point_addition, point_mult
     from vpin_tpu_torch.runner.proof_runner import (
         prove_point_add, prove_point_mult, trace_args,
     )
+    from vpin_tpu_torch.utils.bincode import sat_proof_size
     add, mult = trace_args(res.trace.finalize())
     n_bits = 253 if max(mult[0]) >= 1 << 128 else 128
     out = {}
@@ -1455,16 +1449,22 @@ def prove_cnn(torch, dev, res):
              point_addition.build_matrices(len(add[0]))[3:5]),
             ("mult", prove_point_mult, mult,
              point_mult.build_matrices(len(mult[0]), n_bits)[3:5])):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
         t = time.perf_counter()
         st = fn(*args, tape_seed=PROOF_TAPE_SEED, quiet=True, device=dev,
                 full_snark=False)
         wall = (time.perf_counter() - t) * 1e3
-        require(st.size_bytes > 0, f"CNN A {label} proof is empty")
-        log(f"CNN A {label} proof ({len(args[0])} {label}s"
+        peak = torch.cuda.max_memory_allocated(dev)
+        want = sat_proof_size(*shape)
+        require(st.size_bytes == want, f"CNN {version} {label} proof is "
+                f"{st.size_bytes} B, its shape gives {want}")
+        log(f"CNN {version} {label} proof ({len(args[0])} {label}s"
             + (f", {n_bits}-bit gadget" if label == "mult" else "")
             + f", {shape[0]} constraints, {shape[1]} variables): "
-            f"{st.size_bytes} B, verified; prove {st.gen_ms} ms, verify "
-            f"{st.ver_ms} ms, wall {wall:.0f} ms")
+            f"{st.size_bytes} B as its shape gives, verified; prove "
+            f"{st.gen_ms} ms, verify {st.ver_ms} ms, wall {wall:.0f} ms, "
+            f"card peak {peak / 1e9:.3f} GB")
         out[label] = st
     return out
 
@@ -1509,17 +1509,28 @@ def run_lenet(torch, dev, table):
 # ----------------------------------------------------------------------
 
 class ShapeLog:
-    """Records, while active, the shapes the path gives K4's ed_table and
-    ed_msm and K1's mont_mul, with each shape's first operands (cloned) and
-    its calls; the wrappers underneath still count their launches.  With
-    ``within`` (a file of the repo) only calls made, at any depth, from code
-    in that file are recorded."""
+    """Records, while active, the shapes the path gives the kernel entries
+    ``entries`` (by default K4's ed_table and ed_msm and K1's mont_mul; also
+    K1's mont_pow, K2's e2_add and K3's e2_scalar_mul), with each shape's
+    first operands (copied) and its calls; the wrappers underneath still
+    count their launches.  K2's shapes are keyed by pairs and lanes a pair
+    (e2_add_wide at 1 lane), K3's by ladders, bits, inner, rows and lanes a
+    ladder, as the wrappers choose them.  With ``within`` (a file of the
+    repo) only calls made, at any depth, from code in that file are
+    recorded.  It may be entered several times; the records add up."""
 
-    def __init__(self, within: str = None, host: bool = False):
-        from vpin_tpu_torch.curve import cuda_edwards
+    MODULES = {"ed_table": "cuda_edwards", "ed_msm": "cuda_edwards",
+               "mont_mul": "prime_field", "mont_pow": "prime_field",
+               "e2_add": "cuda_ec", "e2_scalar_mul": "cuda_ec"}
+
+    def __init__(self, within: str = None, host: bool = False,
+                 entries=("ed_table", "ed_msm", "mont_mul")):
+        from vpin_tpu_torch.curve import cuda_ec, cuda_edwards
         from vpin_tpu_torch.field import prime_field
-        self.mods = {"ed_table": cuda_edwards, "ed_msm": cuda_edwards,
-                     "mont_mul": prime_field}
+        mods = {"cuda_ec": cuda_ec, "cuda_edwards": cuda_edwards,
+                "prime_field": prime_field}
+        self.mods = {k: mods[self.MODULES[k]] for k in entries}
+        self.lanes = (cuda_ec.add_lanes, cuda_ec.ladder_lanes)
         self.calls, self.first = {}, {}
         self.within = within
         # with host, the first operands are kept in host memory, so that
@@ -1535,25 +1546,44 @@ class ShapeLog:
             f = f.f_back
         return False
 
+    def _key(self, name, args) -> tuple:
+        from torch import broadcast_shapes
+        if name == "ed_table":
+            return (name, args[1][0].shape[0])
+        if name == "ed_msm":
+            d = args[2]
+            return (name,) + tuple(d.shape[:2]) + (args[1][0].shape[1],)
+        if name == "mont_mul":
+            return (name, args[2].name,
+                    max(args[0].numel(), args[1].numel()) // 8)
+        if name == "mont_pow":
+            return (name, args[2].name, args[0].numel() // 8,
+                    len(args[1]) + sum(args[1]))
+        add_lanes, ladder_lanes = self.lanes
+        if name == "e2_add":
+            shape = broadcast_shapes(args[1][0].shape, args[2][0].shape)
+            n = int(np.prod(shape[:-1], dtype=np.int64))
+            lanes = add_lanes(n)
+            return ("e2_add_wide" if lanes == 1 else name, n, lanes)
+        _, P, _, n_bits, inner, nrows = args
+        n = P[0].shape[0]
+        return (name, n, n_bits, inner, nrows, ladder_lanes(n))
+
     def _wrap(self, name, fn):
-        def wrapper(*args):
+        def wrapper(*args, **kwargs):
             if self.within is not None and not self._inside():
-                return fn(*args)
-            if name == "ed_table":
-                key = (name, args[1][0].shape[0])
-            elif name == "ed_msm":
-                d = args[2]
-                key = (name,) + tuple(d.shape[:2]) + (args[1][0].shape[1],)
-            else:
-                key = (name, args[2].name,
-                       max(args[0].numel(), args[1].numel()) // 8)
+                return fn(*args, **kwargs)
+            if name == "mont_pow":
+                args = (args[0], tuple(int(b) for b in args[1]), args[2])
+            key = self._key(name, args)
             self.calls[key] = self.calls.get(key, 0) + 1
             if key not in self.first:
                 self.first[key] = tuple(
                     tuple(self.copy(c) for c in a) if isinstance(a, tuple)
+                    and a and hasattr(a[0], "clone")
                     else self.copy(a) if hasattr(a, "clone") else a
                     for a in args)
-            return fn(*args)
+            return fn(*args, **kwargs)
         return wrapper
 
     def __enter__(self):
@@ -1567,73 +1597,147 @@ class ShapeLog:
             setattr(m, k, self.saved[k])
 
 
+def sample_rows(torch, n: int, seed: int, dev):
+    """HOLD_SAMPLE seeded rows of a batch of n, the first and the last among
+    them, as a sorted index tensor on ``dev``."""
+    rs = np.random.RandomState(seed)
+    mid = np.sort(rs.choice(n - 2, HOLD_SAMPLE - 2, replace=False) + 1)
+    return torch.as_tensor(np.concatenate([[0], mid, [n - 1]]), device=dev)
+
+
+def shape_case(torch, dev, rate, key, args, max_rows):
+    """How hold_new_shapes holds one recorded shape: (the kernel on the
+    whole shape, the kernel's rows to compare, the plain version on those
+    rows, (bound ms, bound by), a note on the rows held).  A batch of
+    K2 pairs, K3 ladders or mont_pow powers above PLAIN_CHUNK is compared on
+    sample_rows (its rows are independent sums, ladders and powers), an
+    ed_msm of more rows than ``max_rows`` on its first max_rows rows."""
+    from vpin_tpu_torch.curve import cuda_ec
+    from vpin_tpu_torch.curve import cuda_edwards as CE
+    from vpin_tpu_torch.curve.ristretto import RISTRETTO as R
+    from vpin_tpu_torch.curve.weierstrass import E2
+    from vpin_tpu_torch.field import FP
+    from vpin_tpu_torch.field.cuda_mont import (
+        mont_mul, mont_mul_plain, mont_pow, mont_pow_plain,
+    )
+    name, note = key[0], ""
+    if name == "ed_table":
+        fn = lambda: CE.ed_table(R, args[1])                  # noqa: E731
+        m = key[1]
+        return (fn, fn, lambda: CE.ed_table_plain(R, args[1]),
+                bound_ms(255 * m * MONT_PER_ED_ADD * MUL32_PER_MONT_P,
+                         128 * m + 256 * 128 * m, rate), note)
+    if name == "ed_msm":
+        cut = args[2][:max_rows] if max_rows else args[2]
+        if cut.shape[0] < args[2].shape[0]:
+            note = f" (held on its first {cut.shape[0]} rows)"
+        return (lambda: CE.ed_msm(R, args[1], args[2]),
+                lambda: CE.ed_msm(R, args[1], cut),
+                lambda: CE.ed_msm_plain(R, args[1], cut),
+                msm_bound(torch, args[2], rate), note)
+    if name == "mont_mul":
+        a, b, F = args
+        n = key[2]
+        a2, b2 = (x.reshape(-1, 8) for x in torch.broadcast_tensors(a, b))
+        per = MUL32_PER_MONT_P if F is FP else MUL32_PER_MONT
+        fn = lambda: mont_mul(a, b, F)                        # noqa: E731
+        return (fn, fn,
+                lambda: chunked(torch, lambda x, y: mont_mul_plain(x, y, F),
+                                n, a2, b2),
+                bound_ms(per * n, 96 * n, rate), note)
+    n = key[1] if name != "mont_pow" else key[2]
+    rows = (sample_rows(torch, n, n % 1009, dev) if n > PLAIN_CHUNK
+            else torch.arange(n, device=dev))
+    if n > PLAIN_CHUNK:
+        note = (f" (held on {HOLD_SAMPLE} seeded rows, the first and the "
+                f"last among them)")
+    def picked(fn):
+        def rows_of():
+            got = fn()
+            return tuple(c.reshape(-1, 8)[rows] for c in
+                         (got if isinstance(got, tuple) else (got,)))
+        return fn, rows_of
+
+    if name == "mont_pow":
+        a, bits, F = args
+        per = MUL32_PER_MONT_P if F is FP else MUL32_PER_MONT
+        return (*picked(lambda: mont_pow(a, bits, F)),
+                lambda: mont_pow_plain(a.reshape(-1, 8)[rows], bits, F),
+                bound_ms(per * key[3] * n, 64 * n, rate), note)
+    if name in ("e2_add", "e2_add_wide"):
+        _, P, Q = args
+        shape = torch.broadcast_shapes(P[0].shape, Q[0].shape)
+        Pf, Qf = (tuple(c.expand(shape).reshape(-1, 8)[rows] for c in T)
+                  for T in (P, Q))
+        return (*picked(lambda: cuda_ec.e2_add(E2, P, Q)),
+                lambda: cuda_ec.e2_add_plain(E2, Pf, Qf),
+                bound_ms(MONT_PER_E2_ADD * MUL32_PER_MONT * n, 288 * n, rate),
+                note)
+    _, P, words, n_bits, inner, nrows = args
+    bits = np.unpackbits(words.cpu().numpy().view(np.uint8), axis=1,
+                         bitorder="little")[:, :n_bits]
+    adds = ladder_adds(bits, n, inner, nrows, n_bits)
+    Ps = tuple(c[rows] for c in P)
+    ws = words[(rows // inner) % nrows]
+    return (*picked(lambda: cuda_ec.e2_scalar_mul(E2, P, words, n_bits,
+                                                  inner, nrows)),
+            lambda: cuda_ec.e2_scalar_mul_plain(E2, Ps, ws, n_bits, 1,
+                                                rows.numel()),
+            bound_ms(MONT_PER_E2_ADD * MUL32_PER_MONT * adds,
+                     192 * n + words.numel() * 4, rate), note)
+
+
+#: every shape hold_new_shapes has held in this run, as ShapeLog keys
+HELD = set()
+
+
 def hold_new_shapes(torch, dev, rate, shapes: ShapeLog, held: set,
                     label: str = "stock path", every_mul: bool = False,
                     rows: list = None, max_rows: int = None) -> dict:
-    """Each K4 shape of the path outside ``held`` (phase 3's) and its
-    largest mont_mul batch (every one with ``every_mul``), on the path's own
-    operands: kernel against plain, timed, with its bound and its calls on
-    the path.  With ``max_rows``, an ed_msm of more rows is held on its
-    first max_rows rows (the plain version's time) and timed at its whole
-    shape.  Appends each shape's numbers to ``rows`` when given.  Returns
-    the largest error per entry."""
-    from vpin_tpu_torch.curve import cuda_edwards as CE
-    from vpin_tpu_torch.curve.ristretto import RISTRETTO as R
+    """Each shape of the path outside ``held`` (phase 3's) on the path's
+    own operands, of every entry the ShapeLog records but mont_mul, and its
+    largest mont_mul batch in F_l (every mont_mul batch with
+    ``every_mul``): kernel against plain (shape_case says on which rows),
+    timed at its whole shape, with its bound and its calls on the path.
+    Adds each shape to HELD and appends its numbers to ``rows`` when given.
+    Returns the largest error per entry."""
     from vpin_tpu_torch.field import FQ
-    from vpin_tpu_torch.field.cuda_mont import mont_mul, mont_mul_plain
-    err = {"ed_table": 0, "ed_msm": 0, "mont_mul": 0}
-    muls = [k for k in shapes.calls if k[0] == "mont_mul" and k[1] == FQ.name]
-    big = max(muls, key=lambda k: k[2])
+    err = {}
+    muls = [k for k in shapes.calls if k[0] == "mont_mul"
+            and (every_mul or k[1] == FQ.name)]
+    big = max(muls, key=lambda k: k[2]) if muls else None
     for key in sorted(shapes.calls):
         name = key[0]
         if key in held or (name == "mont_mul" and key != big
-                           and not (every_mul and key in muls)):
+                           and not every_mul):
             continue
         args = tuple(tuple(c.to(dev) for c in a) if isinstance(a, tuple)
+                     and a and hasattr(a[0], "to")
                      else a.to(dev) if hasattr(a, "to") else a
                      for a in shapes.first[key])
-        held_rows = ""
-        if name == "ed_table":
-            fn = lambda: CE.ed_table(R, args[1])                  # noqa: E731
-            plain = lambda: CE.ed_table_plain(R, args[1])         # noqa: E731
-            m = key[1]
-            bnd, by = bound_ms(255 * m * MONT_PER_ED_ADD * MUL32_PER_MONT_P,
-                               128 * m + 256 * 128 * m, rate)
-        elif name == "ed_msm":
-            cut = args[2][:max_rows] if max_rows else args[2]
-            fn = lambda: CE.ed_msm(R, args[1], cut)               # noqa: E731
-            plain = lambda: CE.ed_msm_plain(R, args[1], cut)      # noqa: E731
-            bnd, by = msm_bound(torch, args[2], rate)
-            if cut.shape[0] < args[2].shape[0]:
-                held_rows = f" (held on its first {cut.shape[0]} rows)"
-        else:
-            fn = lambda: mont_mul(args[0], args[1], FQ)           # noqa: E731
-            n = key[2]
-            a2, b2 = (x.reshape(-1, 8) for x in
-                      torch.broadcast_tensors(args[0], args[1]))
-            plain = lambda: chunked(                              # noqa: E731
-                torch, lambda x, y: mont_mul_plain(x, y, FQ), n, a2, b2)
-            bnd, by = bound_ms(MUL32_PER_MONT * n, 96 * n, rate)
-        got = fn()
+        fn, checked, plain, (bnd, by), note = shape_case(
+            torch, dev, rate, key, args, max_rows)
+        got = checked()
         want, plain_ms = timed_plain(torch, plain)
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
         require(all(torch.equal(g, w.reshape(g.shape))
                     for g, w in zip(got, want)),
-                f"{key}: kernel != plain on the stock path's operands")
-        err[name] = max(err[name], max_abs_err(
+                f"{key}: kernel != plain on the {label}'s operands")
+        err[name] = max(err.get(name, 0), max_abs_err(
             torch, got, [w.reshape(g.shape) for g, w in zip(got, want)]))
         del got, want
-        if held_rows:
-            fn = lambda: CE.ed_msm(R, args[1], args[2])           # noqa: E731
-        ms = kernel_ms(torch, fn, launches=3 if name != "mont_mul" else 20,
+        ms = kernel_ms(torch, fn, launches=20 if name == "mont_mul" else 3,
                        repeats=3)
         log(f"{label} shape {key}: {shapes.calls[key]} calls; bit-equal "
-            f"to plain on the path's operands{held_rows}; kernel {ms:.4f} "
+            f"to plain on the path's operands{note}; kernel {ms:.4f} "
             f"ms, plain {plain_ms:.1f} ms, bound {bnd:.4f} ms ({by})")
+        HELD.add(key)
         if rows is not None:
             rows.append(dict(shape=key, calls=shapes.calls[key], ms=ms,
-                             plain_ms=plain_ms, bound_ms=bnd, bound_by=by))
+                             plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+                             part=bool(note)))
+        del args
     return err
 
 
@@ -2160,6 +2264,321 @@ def run_lowmem(torch, dev, kernels, rate, fin, single, lenet):
     return path, err, rows
 
 
+# ----------------------------------------------------------------------
+# phase 11: the reference's E3 sweep (filters 3/5/7 x inputs 32-256), CNN B-E
+# ----------------------------------------------------------------------
+
+def phase3_shapes() -> set:
+    """The ShapeLog keys of the shapes phase 3 holds."""
+    from vpin_tpu_torch.curve.ristretto import RISTRETTO as R
+    from vpin_tpu_torch.field import FP, FQ
+    rounds = [TABLE_CHUNK] + decrypt_rounds()
+    inv = len(FQ._inv_exp_bits) + sum(FQ._inv_exp_bits)
+    sqrt = len(R._sqrt_exp_bits) + sum(R._sqrt_exp_bits)
+    held = {("ed_table", m) for m in (BULLET_N, COMB_N, COMB_WIDTH)}
+    held |= {("ed_msm", 1, BULLET_N, BULLET_N), ("ed_msm", 3, 37, BULLET_N),
+             ("ed_msm", 2, BULLET_N, BULLET_N),
+             ("ed_msm", COMB_ROWS, COMB_N, COMB_WIDTH)}
+    held |= {("mont_mul", FQ.name, n) for n in
+             (1 << 16, MONT_LARGE, *(s * r for r in rounds for s in (1, 2)))}
+    held |= {("mont_mul", FP.name, 1 << 16), ("mont_pow", FP.name,
+                                               POW_SHAPES[1], sqrt)}
+    held |= {("mont_pow", FQ.name, n, inv) for n in (*POW_SHAPES, *rounds)}
+    held |= {("e2_add_wide" if g == 1 else "e2_add", n, g)
+             for n in (*ADD_SHAPES, *decrypt_rounds()) for g in ADD_LANES}
+    held |= {("e2_scalar_mul", n, bits, inner, nrows, g)
+             for n, bits, inner, nrows, _, _ in phase3_ladders()
+             for g in LADDER_LANES}
+    return held
+
+
+def cnn_counts(version: str) -> tuple:
+    """(mults, adds) of a CNN trace at 32x32, per ciphertext half twice: the
+    conv's 9 mults and 8 adds, k^2 - 1 pool adds per FC1 input, then each FC
+    layer's bias adds, rLC mults (one per input) and rLC adds."""
+    from vpin_tpu_torch.nn.models import CNN_CONFIGS
+    fc1_in, fc1_out, k, _ = CNN_CONFIGS[version]
+    return (2 * (9 + fc1_in + fc1_out),
+            2 * (8 + fc1_in * (k * k - 1) + fc1_out + fc1_in - 1 + 10
+                 + fc1_out - 1))
+
+
+class HostSplit:
+    """Host time, while active, of the conv's per-request host work:
+    nn/homomorphic.py's pf_vector and scalars_to_bits (those inside
+    _signed_const_mul included) and every np.vectorize call."""
+
+    def __enter__(self):
+        from vpin_tpu_torch.nn import homomorphic
+        self.ms = {"pf_vector": 0.0, "scalars_to_bits": 0.0,
+                   "np.vectorize": 0.0}
+        self.mod, self.vectorize = homomorphic, np.vectorize
+        self.saved = {k: getattr(homomorphic, k)
+                      for k in ("pf_vector", "scalars_to_bits")}
+        for k, fn in self.saved.items():
+            setattr(homomorphic, k, self._timed(k, fn))
+        split = self
+
+        class Vectorize(np.vectorize):
+            def __call__(self, *args, **kwargs):
+                return split._timed("np.vectorize", super().__call__)(
+                    *args, **kwargs)
+
+        np.vectorize = Vectorize
+        return self
+
+    def _timed(self, name, fn):
+        def wrapper(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.ms[name] += (time.perf_counter() - t) * 1e3
+        return wrapper
+
+    def __exit__(self, *exc):
+        for k, fn in self.saved.items():
+            setattr(self.mod, k, fn)
+        np.vectorize = self.vectorize
+
+
+def check_sweep_pixels(torch, res, filt, n: int, seed: int) -> None:
+    """8 output pixels of each half (the corners and 4 seeded) against
+    conv_pixels_host, reading back from the card only the input pixels of
+    their windows (the padding is the identity)."""
+    from vpin_tpu_torch.curve.weierstrass import E2, PointW
+    from vpin_tpu_torch.nn.homomorphic import _window_indices
+    from vpin_tpu_torch.nn.host_check import check_conv_outputs, corner_pixels
+    idx, OH, OW = _window_indices(n, n, filt.shape[0], 1, 1)
+    pixels = corner_pixels(OH, OW, 8, seed=seed)
+    pos = np.unique(idx[pixels])
+    r, c = pos // (n + 2) - 1, pos % (n + 2) - 1
+    inside = (r >= 0) & (r < n) & (c >= 0) & (c < n)
+    flat = (r * n + c)[inside]
+    dev = res.outputs.c1.device
+    sel = torch.as_tensor(flat, device=dev)
+    pix = torch.as_tensor(pixels, device=dev)
+    for half_in, half_out in zip(res.ciphertext, res.outputs):
+        image = np.empty(n * n, dtype=object)    # the rest is never read
+        image[flat] = E2.to_affine_host(PointW(
+            *(t.reshape(-1, 8)[sel] for t in half_in)))
+        out = np.empty(OH * OW, dtype=object)
+        out[pixels] = E2.to_affine_host(PointW(
+            *(t.reshape(-1, 8)[pix] for t in half_out)))
+        check_conv_outputs(image.reshape(n, n), out.reshape(OH, OW), filt,
+                           pixels)
+
+
+def run_sweep_requests(torch, dev):
+    """Each tag <filter>_<size> of the sweep, a cold and a warm request
+    through run_conv_workload (image and key from seed 0, nonces from seeds
+    1 and 2), each with its rLC check, 2 f^2 / 2 (f^2 - 1) trace counts, the
+    whole finalized witness held by check_conv_trace and 8 output pixels per
+    half by conv_pixels_host, its stage times and the card's peak; at
+    SWEEP_PROVE_SIZE the warm request's host split (HostSplit).  Returns
+    the warm finalized traces at SWEEP_PROVE_SIZE by filter."""
+    from contextlib import nullcontext
+    from vpin_tpu_torch.device import synchronize
+    from vpin_tpu_torch.nn.elgamal import KeyPair
+    from vpin_tpu_torch.nn.host_check import check_conv_trace
+    from vpin_tpu_torch.nn.models import CONV_FILTERS, run_conv_workload
+    key = KeyPair.generate(random.Random(0), device=dev)
+    fins = {}
+    for f in SWEEP_FILTERS:
+        filt, f2 = CONV_FILTERS[f], f * f
+        for n in SWEEP_SIZES:
+            img = np.random.RandomState(0).uniform(0.0, 1.0, (n, n)).astype(
+                np.float32)
+            for req in range(2):
+                split = (HostSplit() if req and n == SWEEP_PROVE_SIZE
+                         else nullcontext())
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                with split:
+                    t0 = time.perf_counter()
+                    res = run_conv_workload(img, f, key,
+                                            random.Random(1 + req),
+                                            defer_checks=True)
+                    res.flush_checks()             # raises RLCCheckError
+                    fin = res.trace.finalize()
+                    synchronize(dev)
+                    request_ms = (time.perf_counter() - t0) * 1e3
+                peak = torch.cuda.max_memory_allocated(dev)
+                require(res.trace.num_mults == 2 * f2
+                        and res.trace.num_adds == 2 * (f2 - 1),
+                        f"{f}_{n} request {req}: {res.trace.num_mults} mults,"
+                        f" {res.trace.num_adds} adds")
+                check_conv_trace(fin, filt)
+                check_sweep_pixels(torch, res, filt, n, seed=req)
+                conv_ms = res.timings["inference"] * 1e3
+                log(f"conv {f}_{n} ({'warm' if req else 'cold'}, "
+                    f"{(n + 3 - f) ** 2} output pixels): rLC ok, {2 * f2} "
+                    f"mults / {2 * (f2 - 1)} adds, witness equal to host "
+                    f"arithmetic, 8 output pixels per half equal to host_ec; "
+                    f"encrypt_ms {res.timings['encrypt'] * 1e3:.1f}, conv_ms "
+                    f"{conv_ms:.1f}, request_ms {request_ms:.1f}, card peak "
+                    f"{peak / 1e9:.3f} GB")
+                if isinstance(split, HostSplit):
+                    log(f"conv {f}_{n} warm: host work inside conv_ms "
+                        f"{conv_ms:.1f}: " + ", ".join(
+                            f"{k} {v:.1f} ms" for k, v in split.ms.items()))
+                    fins[f] = fin
+                del res
+    return fins
+
+
+def prove_sweep(torch, dev, fins) -> None:
+    """The full SNARK of the warm SWEEP_PROVE_SIZE traces of filters 5 and 7
+    (the 128-bit mult gadget), tape seed PROOF_TAPE_SEED, verified on the
+    host; each proof's size equal to its bincode length and to what its
+    instance's shape gives (utils/bincode.snark_size)."""
+    from vpin_tpu_torch.gadgets import point_addition, point_mult
+    from vpin_tpu_torch.runner import proof_runner as pr
+    from vpin_tpu_torch.utils.bincode import snark_size
+    for f in (5, 7):
+        add, mult = pr.trace_args(fins[f])
+        want = []
+        for A, B, C, nc, nv, *_ in (point_addition.build_matrices(len(add[0])),
+                                   point_mult.build_matrices(len(mult[0]),
+                                                             128)):
+            want.append((nc, snark_size(
+                nc, nv, max(len(A[0]), len(B[0]), len(C[0])), True)))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        pr.RECORD = []
+        try:
+            st = [pr.prove_point_add(*add, tape_seed=PROOF_TAPE_SEED,
+                                     quiet=True, device=dev),
+                  pr.prove_point_mult(*mult, tape_seed=PROOF_TAPE_SEED,
+                                      quiet=True, device=dev)]
+            blobs = [b for _, b in pr.RECORD]
+        finally:
+            pr.RECORD = None
+        peak = torch.cuda.max_memory_allocated(dev)
+        for label, s_, blob, (nc, w) in zip(("add", "mult"), st, blobs, want):
+            require(s_.size_bytes == len(blob) == w,
+                    f"conv f={f} {label} full SNARK: {s_.size_bytes} B, "
+                    f"bincode {len(blob)} B, its shape gives {w}")
+        log(f"conv {f}_{SWEEP_PROVE_SIZE} full SNARK, tape seed "
+            f"{PROOF_TAPE_SEED}: add ({len(add[0])} adds, {want[0][0]} "
+            f"constraints) {st[0].size_bytes} B, mult ({len(mult[0])} mults, "
+            f"128-bit gadget, {want[1][0]} constraints) {st[1].size_bytes} B,"
+            f" as their shapes give, verified; prove_add_ms {st[0].gen_ms}, "
+            f"prove_mult_ms {st[1].gen_ms}, verify_add_ms {st[0].ver_ms}, "
+            f"verify_mult_ms {st[1].ver_ms}; card peak {peak / 1e9:.3f} GB")
+
+
+def run_cnn_versions(torch, dev, table, seed=1, quiet=False):
+    """One request of each of CNN_VERSIONS at full width (32x32, stand-in
+    weights from seed 0) through run_cnn_workload(timed=True), each with
+    its rLC checks, the counts cnn_counts gives and logits exactly equal to
+    the plaintext pipeline (cnn_plain_logits).  Returns {version: result}."""
+    from vpin_tpu_torch.nn.elgamal import KeyPair
+    from vpin_tpu_torch.nn.host_check import cnn_plain_logits
+    from vpin_tpu_torch.nn.models import (
+        CNN_CONFIGS, make_random_weights, run_cnn_workload,
+    )
+    key = KeyPair.generate(random.Random(0), device=dev)
+    img = np.random.RandomState(0).uniform(0.0, 1.0, (SIZE, SIZE)).astype(
+        np.float32)
+    out = {}
+    for v in CNN_VERSIONS:
+        fc1_in, fc1_out, k, s = CNN_CONFIGS[v]
+        weights = make_random_weights(fc1_in, fc1_out, seed=0)
+        want = cnn_plain_logits(img, weights, v)
+        t = time.perf_counter()
+        res = run_cnn_workload(v, img, key, table, weights=weights,
+                               rng=random.Random(seed), timed=True)
+        request_ms = (time.perf_counter() - t) * 1e3
+        mults, adds = cnn_counts(v)
+        require(res.trace.num_mults == mults and res.trace.num_adds == adds,
+                f"CNN {v}: {res.trace.num_mults} mults, "
+                f"{res.trace.num_adds} adds (want {mults}, {adds})")
+        require(not res.engine.pending_checks, "rLC checks left unflushed")
+        require(np.array_equal(res.logits, want),
+                f"CNN {v}: logits {res.logits.tolist()} != plaintext "
+                f"{want.tolist()}")
+        if not quiet:
+            log(f"CNN {v} (FC {fc1_in} -> {fc1_out} -> 10, pool {k}x{k} "
+                f"stride {s}): " + ", ".join(
+                    f"{k_}_ms {t_ * 1e3:.1f}" for k_, t_ in res.timings.items()
+                    if k_ != "total")
+                + f", request_ms {request_ms:.1f}; giant-step rounds per "
+                f"decrypt {res.decrypt_rounds}; {mults} mults / {adds} adds, "
+                f"rLC ok, logits {want.tolist()} equal to the plaintext "
+                f"pipeline")
+        out[v] = res
+    return out
+
+
+def run_sweep(torch, dev, kernels, rate, table):
+    """Phase 11, its launch counts set to 0 before it and read after it
+    (path ``sweep``): (a) the 12 conv tags, a cold and a warm request each
+    (run_sweep_requests); (b) the full SNARK of the f = 5 and f = 7 traces
+    (prove_sweep); (c) CNN B-E at 32x32 on ``table`` (run_cnn_versions);
+    (d) CNN_PROVE's whole trace proven transparent (prove_cnn); (e) one more
+    request of each tag and of each of B-E under a ShapeLog, whose shapes,
+    with those of (b) and (d), that neither phase 3 nor an earlier hold of
+    this run (HELD: phases 8-10) holds are each held bit for bit against the
+    plain version on the path's own operands (a batch above PLAIN_CHUNK on
+    HOLD_SAMPLE seeded rows, an ed_msm on its first HOLD_ROWS rows) and
+    timed.  (a) and (c) run outside the ShapeLog, so that their times and
+    peaks are their own; (b) and (d) inside it, its operand copies kept off
+    the card.  Returns (the path's launches, the largest error per
+    entry)."""
+    from vpin_tpu_torch.nn.elgamal import KeyPair
+    from vpin_tpu_torch.nn.models import run_conv_workload
+    for name in kernels.LAUNCHES:
+        kernels.LAUNCHES[name] = 0
+    shapes = ShapeLog(host=True, entries=tuple(ShapeLog.MODULES))
+    t = time.perf_counter()
+    fins = run_sweep_requests(torch, dev)
+    log(f"(a) 12 conv tags x 2 requests: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    fresh_generators()
+    with shapes:
+        prove_sweep(torch, dev, fins)
+    log(f"(b) f = 5 and 7 full SNARKs: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    cnn = run_cnn_versions(torch, dev, table)
+    log(f"(c) CNN {', '.join(CNN_VERSIONS)}: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    with shapes:
+        prove_cnn(torch, dev, cnn[CNN_PROVE], CNN_PROVE)
+    log(f"(d) CNN {CNN_PROVE} transparent proofs: "
+        f"{time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    key = KeyPair.generate(random.Random(0), device=dev)
+    with shapes:
+        for f in SWEEP_FILTERS:
+            for n in SWEEP_SIZES:
+                img = np.random.RandomState(0).uniform(
+                    0.0, 1.0, (n, n)).astype(np.float32)
+                res = run_conv_workload(img, f, key, random.Random(3))
+                require(res.trace.num_mults == 2 * f * f,
+                        f"{f}_{n}: the ShapeLog's request")
+                del res
+        run_cnn_versions(torch, dev, table, seed=3, quiet=True)
+    launched = dict(kernels.LAUNCHES)
+    log(f"(e) the ShapeLog's requests: {time.perf_counter() - t:.1f} s; "
+        f"{len(shapes.calls)} shapes")
+    path = path_launches(kernels, "sweep", launched)
+    rows = []
+    t = time.perf_counter()
+    earlier = len(set(shapes.calls) & (HELD - phase3_shapes()))
+    err = hold_new_shapes(torch, dev, rate, shapes, phase3_shapes() | HELD,
+                          label="sweep", every_mul=True, rows=rows,
+                          max_rows=HOLD_ROWS)
+    by_entry = {}
+    for r in rows:
+        by_entry.setdefault(r["shape"][0], []).append(r)
+    log(f"(e) new shapes held: {time.perf_counter() - t:.1f} s; " + ", ".join(
+        f"{k} {len(v)} ({sum(r['part'] for r in v)} on part of their rows)"
+        for k, v in sorted(by_entry.items())) + ", each bit-equal to plain; "
+        f"{earlier} more held earlier in this run (phases 8-10)")
+    return path, err
+
+
 def path_launches(kernels, name: str, launched: dict) -> dict:
     """Require every entry of path ``name`` to have launched on it."""
     idle = [k for k in PATH_ENTRIES[name] if launched[k] == 0]
@@ -2214,21 +2633,12 @@ def main() -> int:
                                                            mul32_rate)
     rows["ed_add"] = check_ed_add(torch, dev, mul32_rate)
     rows["ed_table"], rows["ed_msm"] = check_ed_msm(torch, dev, mul32_rate)
-    M = SIZE * SIZE
-    f2 = FILTER * FILTER
-    rows["e2_scalar_mul"] = check_ladder(torch, dev, mul32_rate, P, M * f2,
-                                         128, f2, M, "rho over windows")
-    check_ladder(torch, dev, mul32_rate, P, M, 128, 1, M, "rho over outputs")
-    check_ladder(torch, dev, mul32_rate, P, M * f2, 2, 1, f2,
-                 "filter weights", plain_repeats=3)
-    check_ladder(torch, dev, mul32_rate, P, f2, 2, 1, f2,
-                 "the recorded mults", plain_repeats=3)
-    check_ladder(torch, dev, mul32_rate, P, M - 1, 128, 1, M - 1, "odd n")
-    check_ladder(torch, dev, mul32_rate, P, 13, 128, 1, 13, "13 ladders")
-    check_ladder(torch, dev, mul32_rate, P, 13, 0, 1, 13, "no bits")
-    for n in DECRYPT_LADDERS:
-        row = check_ladder(torch, dev, mul32_rate, P, n, 253, 1, 1,
-                           f"decrypt c1 by the key ({n})")
+    for i, (n, n_bits, inner, nrows, label, reps) in enumerate(
+            phase3_ladders()):
+        row = check_ladder(torch, dev, mul32_rate, P, n, n_bits, inner, nrows,
+                           label, plain_repeats=reps)
+        if i == 0:                             # the kernels line's K3 row
+            rows["e2_scalar_mul"] = row
         rows["e2_scalar_mul"]["max_abs_err"] = max(
             rows["e2_scalar_mul"]["max_abs_err"], row["max_abs_err"])
     k5_rows, own_path = check_ed_ladder(torch, dev, mul32_rate)
@@ -2312,6 +2722,13 @@ def main() -> int:
     for name, e in low_err.items():
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], e)
     phase_done(10)
+
+    # -- phase 11 (before phase 7) --
+    paths["sweep"], sweep_err = run_sweep(torch, dev, kernels, mul32_rate,
+                                          table)
+    for name, e in sweep_err.items():
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], e)
+    phase_done(11)
 
     # -- phase 7 --
     # K5 and the elementwise K4 addition lie off the main path; their counts

@@ -4,8 +4,9 @@ its rLC check, the witness trace and its export.
 
 Tolerance: exact.  The fast tier holds the slice against the exact host
 arithmetic of curve/host_ec.py, the oracle vpin_tpu's own tests use.  The
-slow tier runs vpin_tpu's run_conv_workload on the same seeds and rLC keys
-and requires equal finalized traces, byte-equal JSON exports and equal conv
+slow tier runs vpin_tpu's run_conv_workload on the same seeds and rLC keys,
+for each filter of the reference's sweep (3, 5 and 7), and requires equal
+finalized traces, byte-equal JSON exports and equal ciphertexts and conv
 outputs in affine form.
 """
 
@@ -131,7 +132,8 @@ def test_export_json(run, tmp_path):
 
 
 @pytest.mark.parametrize("H,W,f,padding,stride",
-                         [(3, 3, 3, 1, 1), (4, 5, 3, 0, 1), (6, 6, 5, 2, 2)])
+                         [(3, 3, 3, 1, 1), (4, 5, 3, 0, 1), (6, 6, 5, 2, 2),
+                          (6, 6, 7, 1, 1), (256, 256, 7, 1, 1)])
 def test_window_indices_match_jax(H, W, f, padding, stride):
     from vpin_tpu.nn.homomorphic import _window_indices as jax_windows
     got = _window_indices(H, W, f, padding, stride)
@@ -169,9 +171,16 @@ def test_cli_conv_on_cpu(tmp_path, capsys, monkeypatch):
 # slow tier: the same slice through vpin_tpu
 # ----------------------------------------------------------------------
 
-@pytest.fixture(scope="module")
-def both(tmp_path_factory):
-    """One 2x2 conv request through vpin_tpu and through the port, with the
+# (filter, image size): conv3 on a 2x2 image, and the sweep's larger
+# filters on the smallest images that give them more than one output pixel
+# (3x3 and 2x2 outputs); the trace does not depend on the image size
+SLICE_CASES = [(3, 2), (5, 5), (7, 6)]
+
+
+@pytest.fixture(scope="module", params=SLICE_CASES,
+                ids=[f"f{f}" for f, _ in SLICE_CASES])
+def both(request, tmp_path_factory):
+    """One conv request through vpin_tpu and through the port, with the
     same key pair, nonce seed and rLC keys; vpin_tpu's inputs and outputs
     are captured by wrapping its encrypt_batch and conv2d."""
     from vpin_tpu.nn import models as jmodels
@@ -192,24 +201,26 @@ def both(tmp_path_factory):
         captured["ct"] = real_encrypt(*args, **kwargs)
         return captured["ct"]
 
+    f, size = request.param
     jkey = JKeyPair.generate(random.Random(5))
     keys = fixed_keys()
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jmodels, "fresh_key", keys)
         mp.setattr(jmodels, "HomomorphicEngine", Engine)
         mp.setattr(jmodels, "encrypt_batch", encrypt)
-        jres = jmodels.run_conv_workload(image(2, 1), 3, jkey, random.Random(6))
+        jres = jmodels.run_conv_workload(image(size, 1), f, jkey,
+                                         random.Random(6))
     jdir = tmp_path_factory.mktemp("jax")
     jfin = jres.trace.finalize()
     jres.trace.export_json(str(jdir), _finalized=jfin)
 
     key = convert.keypair_from_jax(jkey, "cpu")
-    res = run_conv_workload(image(2, 1), 3, key, random.Random(6),
+    res = run_conv_workload(image(size, 1), f, key, random.Random(6),
                             key_source=fixed_keys())
     pdir = tmp_path_factory.mktemp("port")
     fin = res.trace.finalize()
     res.trace.export_json(str(pdir), _finalized=fin)
-    return dict(jres=jres, jfin=jfin, jdir=jdir, jct=captured["ct"],
+    return dict(f=f, jres=jres, jfin=jfin, jdir=jdir, jct=captured["ct"],
                 jouts=captured["outs"], res=res, fin=fin, pdir=pdir)
 
 
@@ -218,13 +229,14 @@ def _affine(pts):
             np.asarray(pts, dtype=object).reshape(-1)]
 
 
-# vpin_tpu's conv on the CPU is compile-bound: a cold 2x2 run_conv_workload
-# takes minutes (tests/test_nn.py marks its 4x4 conv slow for the same reason)
+# vpin_tpu's conv on the CPU is compile-bound: a cold run_conv_workload takes
+# minutes at any size, the f = 7 case about 8 with the port's half
+# (tests/test_nn.py marks its 4x4 conv slow for the same reason)
 @pytest.mark.slow
 def test_slice_trace_matches_jax(both):
-    jfin, fin = both["jfin"], both["fin"]
-    assert both["jres"].num_mults == both["res"].num_mults == 18
-    assert both["jres"].num_adds == both["res"].num_adds == 16
+    jfin, fin, f2 = both["jfin"], both["fin"], both["f"] ** 2
+    assert both["jres"].num_mults == both["res"].num_mults == 2 * f2
+    assert both["jres"].num_adds == both["res"].num_adds == 2 * (f2 - 1)
     assert set(fin) == set(jfin)
     for k in jfin:
         assert [int(v) for v in np.asarray(fin[k], dtype=object)] == [

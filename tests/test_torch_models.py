@@ -4,7 +4,7 @@ cnn and bsgs) on the CPU, where K1-K3 run their plain PyTorch versions.
 
 Tolerance: exact.  The fast tier holds every layer's output and its recorded
 witness against the exact host arithmetic of curve/host_ec.py, with the
-trace counts of tests/test_nn.py.  The slow tier runs CNN A and LeNet in
+trace counts of tests/test_nn.py.  The slow tier runs CNN A-E and LeNet in
 both packages on the same key, nonce seed, rLC keys, weights and BSGS table
 and requires equal traces, export bytes, logits and layer slices; and it
 proves a 253-bit mult instance in both packages and requires equal proof
@@ -337,22 +337,36 @@ def exports_equal(jtrace, trace, jfin, fin, tmp_path, **slices):
         assert (pdir / name).read_bytes() == (jdir / name).read_bytes(), name
 
 
+# FC widths of the parity cases (fc1_in, fc1_out) on an 8x8 image: A and B
+# pool 4x4 into 4 FC1 inputs, C-E pool 2x2 into 16; FC1's outputs keep the
+# versions' ratios (16 : 32 : 64 as 6 : 12 : 24)
+CNN_CASES = {"A": (4, 6), "B": (4, 12), "C": (16, 6), "D": (16, 12),
+             "E": (16, 24)}
+
+
 # vpin_tpu's pipeline on the CPU is compile-bound (tests/test_models.py is
 # slow for the same reason), and the port's plain decryptions take minutes
 @pytest.mark.slow
-def test_cnn_a_equals_vpin_tpu(jtable, tmp_path):
+@pytest.mark.parametrize("version", list(CNN_CASES))
+def test_cnn_equals_vpin_tpu(jtable, tmp_path, version):
     img = np.random.RandomState(11).rand(8, 8)
-    w = tiny_weights(4, 6)
+    n_in, n_out = CNN_CASES[version]
+    k = models.CNN_CONFIGS[version][2]
+    w = tiny_weights(n_in, n_out)
     jres, res, jfin, fin = run_both(
         jtable,
-        lambda jm, k, t: jm.run_cnn_workload("A", img, k, t, weights=w,
-                                             rng=random.Random(2),
-                                             max_steps=100_000),
-        lambda k, t: models.run_cnn_workload(
-            "A", img, k, t, weights=convert.weights_from_jax(w),
+        lambda jm, key, t: jm.run_cnn_workload(version, img, key, t, weights=w,
+                                               rng=random.Random(2),
+                                               max_steps=100_000),
+        lambda key, t: models.run_cnn_workload(
+            version, img, key, t, weights=convert.weights_from_jax(w),
             rng=random.Random(2), max_steps=100_000, key_source=rlc_keys()))
-    assert res.num_mults == 2 * (9 + 4 + 6)
-    assert res.num_adds == 2 * (8 + 60 + 6 + 3 + 10 + 5)
+    if version == "A":
+        assert res.num_mults == 2 * (9 + 4 + 6)
+        assert res.num_adds == 2 * (8 + 60 + 6 + 3 + 10 + 5)
+    assert res.num_mults == 2 * (9 + n_in + n_out)
+    assert res.num_adds == 2 * (8 + n_in * (k * k - 1) + n_out + (n_in - 1)
+                                + 10 + (n_out - 1))
     exports_equal(jres.trace, res.trace, jfin, fin, tmp_path)
 
 

@@ -1,5 +1,5 @@
 """Exact host checks of a conv request, with the pure-Python curve arithmetic
-of curve/host_ec.py as the oracle.
+of curve/host_ec.py as the oracle, and CNN A-E on plaintext integers.
 
 Used by chip_smoke.py on the card's results and by the CPU tests.
 """
@@ -9,6 +9,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..curve.host_ec import E2_HOST, HostPoint, host_infinity
+from . import fixed_point
 from .homomorphic import _window_indices
 
 
@@ -99,3 +100,40 @@ def check_conv_trace(fin: dict, filt: np.ndarray) -> None:
         for i in range(f2 - 2):
             _require(Pl[i + 1] == Pl[i] + Rr[i],
                      f"half {h}: add_p[{i + 1}] != add_p[{i}] + add_r[{i}]")
+
+
+def cnn_plain_decrypts(image: np.ndarray, weights: dict, version: str) -> list:
+    """CNN ``version`` (A-E) on plaintext integers with the fixed-point steps
+    of the encrypted pipeline: the values the client decrypts, in order (the
+    conv output, the pooled sums, FC1's and FC2's outputs).  conv3 (pad 1)
+    by the integer filter, ReLU, k x k window sums at stride s times
+    fixed_point(1/k^2), shift 26, FC1 with the encoded weights plus the
+    encoded bias, ReLU, shift 32, FC2; the logits are the last, ReLU'd."""
+    from .models import CNN_CONFIGS, CONV_FILTERS
+    _, _, k, s = CNN_CONFIGS[version]
+    x = fixed_point.encode(fixed_point.min_max_scaling(image)).astype(np.int64)
+    filt = CONV_FILTERS[3]
+    H, W = x.shape
+    xp = np.pad(x, 1)
+    conv = sum(int(filt[a, b]) * xp[a:a + H, b:b + W]
+               for a in range(3) for b in range(3))
+    act = np.maximum(0, conv)
+    idx, _, _ = _window_indices(H, W, k, 0, s)
+    pooled = act.reshape(-1)[idx].sum(axis=1) \
+        * fixed_point.pool_reciprocal_fixed(k)
+    v = fixed_point.shift(pooled, 26).astype(np.int64)
+
+    def fc(v, layer):
+        w = fixed_point.encode(weights[f"weight_{layer}"]).astype(np.int64)
+        b = fixed_point.encode(weights[f"bias_{layer}"]).astype(np.int64)
+        return v @ w + b
+
+    fc1 = fc(v, "fc1")
+    h = fixed_point.shift(np.maximum(0, fc1), 32).astype(np.int64)
+    return [conv.reshape(-1), pooled, fc1, fc(h, "fc2")]
+
+
+def cnn_plain_logits(image: np.ndarray, weights: dict,
+                     version: str) -> np.ndarray:
+    """The logits of cnn_plain_decrypts."""
+    return np.maximum(0, cnn_plain_decrypts(image, weights, version)[-1])

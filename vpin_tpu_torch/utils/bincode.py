@@ -339,3 +339,73 @@ def deserialize_nizk(data: bytes):
     if r.off != len(data):
         raise ValueError("trailing bytes after the NIZK proof")
     return NIZK(sat, (rx, ry))
+
+
+# ----------------------------------------------------------------------
+# sizes from an instance's shape
+# ----------------------------------------------------------------------
+
+def _log2_ceil(n: int) -> int:
+    """log2 of the power of two at or above n."""
+    return (max(n, 1) - 1).bit_length()
+
+
+def _vec(k: int) -> int:
+    return 8 + 32 * k
+
+
+def _polyeval(nvars: int) -> int:
+    """A PolyEvalProof over nvars variables: bullet L and R, delta, beta,
+    z1, z2."""
+    return 2 * _vec(nvars - nvars // 2) + 4 * 32
+
+
+def sat_proof_size(num_cons: int, num_vars: int) -> int:
+    """Bytes of a CPSnarkProof without the eval proof (the sat proof and the
+    three instance evaluations) for an R1CS instance with these counts, as
+    vpin_tpu's size() methods reckon them (snark/r1csproof.py): the
+    witness's Hyrax rows, two zero-knowledge sumchecks (cubic over the
+    constraints, quadratic over twice the variables), the claims and their
+    sigma proofs, and the witness's opening."""
+    x, s = _log2_ceil(max(num_cons, 2)), _log2_ceil(max(num_vars, 2))
+
+    def sumcheck(rounds, degree):     # comm_polys, comm_evals, dot products
+        return 2 * _vec(rounds) + 8 + rounds * (4 * 32 + _vec(degree + 1))
+
+    return (_vec(1 << (s // 2)) + sumcheck(x, 3)
+            + 4 * 32 + 3 * 32 + 8 * 32 + 2 * 32  # claims, knowledge, product, eq
+            + sumcheck(s + 1, 2) + 32 + _polyeval(s)  # comm_vars_at_ry, opening
+            + 2 * 32 + 3 * 32)                   # eq; inst_evals
+
+
+def eval_proof_size(num_cons: int, num_vars: int, nnz: int) -> int:
+    """Bytes of the SPARK eval proof of an R1CS instance with these counts
+    (one input) and at most ``nnz`` entries a matrix: the derefs' Hyrax
+    rows, the product layer (two batched product-circuit proofs) and the
+    hash layer (three PolyEvalProofs)."""
+    batch = 3                          # the matrices A, B and C
+    cells = max(_log2_ceil(max(num_cons, 2)),
+                _log2_ceil(max(num_vars, 2)) + 1)
+    N = _log2_ceil(nnz)
+
+    def product_proof(K, leaves, k2):  # layer i has i cubic rounds
+        return 8 + sum(8 + i * _vec(3) + 2 * _vec(K)
+                       for i in range(leaves)) + 3 * _vec(k2)
+
+    ops_vars = N + _log2_ceil(5 * batch)
+    derefs_vars = N + _log2_ceil(2 * batch)
+    product_layer = (2 * (2 * 32 + 2 * _vec(batch)) + 2 * _vec(batch)
+                     + product_proof(4, cells, 0)
+                     + product_proof(4 * batch, N, 2 * batch))
+    hash_layer = (2 * (2 * _vec(batch) + 32) + 3 * _vec(batch)
+                  + _polyeval(ops_vars) + _polyeval(cells + 1)
+                  + _polyeval(derefs_vars))
+    return _vec(1 << (derefs_vars // 2)) + product_layer + hash_layer
+
+
+def snark_size(num_cons: int, num_vars: int, nnz: int,
+               full_snark: bool) -> int:
+    """Bytes of serialize_snark's output for a CP-SNARK of an instance with
+    these counts: the sat proof and, in full, the eval proof."""
+    return sat_proof_size(num_cons, num_vars) + (
+        eval_proof_size(num_cons, num_vars, nnz) if full_snark else 0)
