@@ -43,7 +43,7 @@ def test_the_walk_sees_the_package():
     assert "vpin_tpu_torch/spark/product_tree.py" in names
     assert "vpin_tpu_torch/spark/__init__.py" in names
     for mod in ("nn/bsgs.py", "nn/models.py", "nn/accuracy.py", "convert.py",
-                "runner/cli.py"):
+                "runner/cli.py", "runner/bench.py"):
         assert f"vpin_tpu_torch/{mod}" in names
     tree = ast.parse("import jax.numpy as jnp\nfrom vpin_tpu.field import FQ\n"
                      "from .field import FQ\n")
@@ -59,13 +59,13 @@ def test_the_walk_sees_the_measuring_scripts():
 
 
 def test_no_jax_or_vpin_tpu_at_run_time():
-    """Importing the CNN slice's modules (and the CLI) loads neither JAX nor
-    vpin_tpu."""
+    """Importing the CNN slice's modules, the CLI and the bench loads neither
+    JAX nor vpin_tpu."""
     code = (
         "import sys\n"
         "import vpin_tpu_torch.nn.bsgs, vpin_tpu_torch.nn.models\n"
         "import vpin_tpu_torch.nn.accuracy, vpin_tpu_torch.convert\n"
-        "import vpin_tpu_torch.runner.cli\n"
+        "import vpin_tpu_torch.runner.cli, vpin_tpu_torch.runner.bench\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'vpin_tpu'))\n"
         "print(bad)\n")

@@ -142,6 +142,14 @@ def _load(entry: str):
     return fn
 
 
+def load_all() -> None:
+    """Build every kernel not built yet and bind every entry, so that no
+    first launch pays for either."""
+    build()
+    for entry in ENTRIES:
+        _load(entry)
+
+
 def launch(entry: str, device: torch.device, *args, count: int = 1) -> None:
     """Call entry point ``entry`` on ``device``'s current stream.  ``args``
     are the C function's arguments before the stream; tensors' pointers are
