@@ -39,6 +39,7 @@ from ..curve.host_ec import E2_G_HOST, E2_ORDER
 from ..curve.weierstrass import E2, PointW, cat_points, scalars_to_bits, take
 from ..device import resolve_device
 from ..field.limbs import int_to_limbs, to_tensor, widen
+from ..utils.timer import span
 
 _MIX1 = np.uint64(0x9E3779B97F4A7C15)
 _MIX2 = np.uint64(0xC2B2AE3D27D4EB4F)
@@ -223,57 +224,62 @@ class BsgsTable:
         """Signed dlog of a flat batch of m*G points.  Walks both the +M
         and -M chains (reference dual-chain negative handling,
         cnn_networks/Client.py:228-231)."""
-        dev = M.device
-        n = M.batch_shape[0]
-        # default = m giant steps, the reference's cap (giant_step loops up
-        # to m times, cnn_networks/Client.py:188-213); the early break
-        # below keeps small values as cheap as a small cap would
-        max_steps = max_steps if max_steps is not None else self.m
-        K = giant_stride(n, max_steps, stride_k)
-        # chains: rows [0, n) walk +M, rows [n, 2n) walk -M
-        chains = cat_points([M, E2.neg(M)])
+        with span("bsgs_search"):
+            dev = M.device
+            n = M.batch_shape[0]
+            # default = m giant steps, the reference's cap (giant_step loops
+            # up to m times, cnn_networks/Client.py:188-213); the early
+            # break below keeps small values as cheap as a small cap would
+            max_steps = max_steps if max_steps is not None else self.m
+            K = giant_stride(n, max_steps, stride_k)
+            # chains: rows [0, n) walk +M, rows [n, 2n) walk -M
+            chains = cat_points([M, E2.neg(M)])
 
-        # stride candidates -i*m*G for i in 0..K-1, and the round hop -K*m*G
-        S, hop = self.strides(K, dev)
+            # stride candidates -i*m*G for i in 0..K-1, and the round hop
+            # -K*m*G
+            S, hop = self.strides(K, dev)
 
-        found = torch.full((2 * n,), -1, dtype=torch.int64, device=dev)
-        rounds = (max_steps + K - 1) // K
-        self.last_rounds = 0
-        for r in range(rounds):
-            self.last_rounds = r + 1
-            cand = E2.add(PointW(*(c[:, None] for c in chains)), S)  # (2n, K)
-            x, y, inf = _affine_plain(cand)
-            js = self._lookup(x, y)
-            # an infinity candidate means M == (step*m)*G exactly
-            hit = inf | (js >= 0)
-            any_hit = hit.any(-1)
-            i_first = hit.to(torch.uint8).argmax(-1, keepdim=True)
-            j_at = js.gather(-1, i_first)[:, 0]
-            inf_at = inf.gather(-1, i_first)[:, 0]
-            val = (r * K + i_first[:, 0]) * self.m + torch.where(inf_at, 0,
-                                                                 j_at)
-            found = torch.where(any_hit & (found == -1), val, found)
-            if bool(((found[:n] != -1) | (found[n:] != -1)).all()):
-                break
-            chains = E2.add(chains, hop)
+            found = torch.full((2 * n,), -1, dtype=torch.int64, device=dev)
+            rounds = (max_steps + K - 1) // K
+            self.last_rounds = 0
+            for r in range(rounds):
+                self.last_rounds = r + 1
+                # (2n, K)
+                cand = E2.add(PointW(*(c[:, None] for c in chains)), S)
+                x, y, inf = _affine_plain(cand)
+                js = self._lookup(x, y)
+                # an infinity candidate means M == (step*m)*G exactly
+                hit = inf | (js >= 0)
+                any_hit = hit.any(-1)
+                i_first = hit.to(torch.uint8).argmax(-1, keepdim=True)
+                j_at = js.gather(-1, i_first)[:, 0]
+                inf_at = inf.gather(-1, i_first)[:, 0]
+                val = ((r * K + i_first[:, 0]) * self.m
+                       + torch.where(inf_at, 0, j_at))
+                found = torch.where(any_hit & (found == -1), val, found)
+                if bool(((found[:n] != -1) | (found[n:] != -1)).all()):
+                    break
+                chains = E2.add(chains, hop)
 
-        found = found.cpu().numpy()
-        pos, neg = found[:n], found[n:]
-        missing = (pos == -1) & (neg == -1)
-        if missing.any():
-            raise ValueError(f"dlog not found within {max_steps} giant steps "
-                             f"for {int(missing.sum())} elements")
-        use_pos = (pos != -1) & ((neg == -1) | (pos <= neg))
-        results = [int(p) if up else -int(ng)
-                   for p, ng, up in zip(pos, neg, use_pos)]
+            found = found.cpu().numpy()
+            pos, neg = found[:n], found[n:]
+            missing = (pos == -1) & (neg == -1)
+            if missing.any():
+                raise ValueError(f"dlog not found within {max_steps} giant "
+                                 f"steps for {int(missing.sum())} elements")
+            use_pos = (pos != -1) & ((neg == -1) | (pos <= neg))
+            results = [int(p) if up else -int(ng)
+                       for p, ng, up in zip(pos, neg, use_pos)]
 
-        # verification sweep: |v|*G must reproduce +/-M (guards key collisions)
-        absvals = [abs(v) for v in results]
-        nb = max(1, max((v.bit_length() for v in absvals), default=1))
-        vg = E2.scalar_mul_bits(E2.generator((n,), dev),
-                                scalars_to_bits(absvals, nb))
-        signs = np.asarray([v < 0 for v in results], dtype=bool)
-        vg = E2.select(signs, E2.neg(vg), vg)
-        if not bool(E2.eq(vg, M).all()):
-            raise ValueError("BSGS verification failed (hash collision?)")
+        # verification sweep: |v|*G must reproduce +/-M (guards key
+        # collisions)
+        with span("bsgs_verify"):
+            absvals = [abs(v) for v in results]
+            nb = max(1, max((v.bit_length() for v in absvals), default=1))
+            vg = E2.scalar_mul_bits(E2.generator((n,), dev),
+                                    scalars_to_bits(absvals, nb))
+            signs = np.asarray([v < 0 for v in results], dtype=bool)
+            vg = E2.select(signs, E2.neg(vg), vg)
+            if not bool(E2.eq(vg, M).all()):
+                raise ValueError("BSGS verification failed (hash collision?)")
         return results

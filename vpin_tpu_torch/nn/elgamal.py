@@ -7,6 +7,9 @@ encrypt; src/cnn_networks/Client.py:215-249 decrypt).
            gives the same ciphertexts as vpin_tpu;
   Dec    = dlog(c2 - x*c1) by baby-step/giant-step (nn/bsgs.py), trying both
            +M and -M to recover signed messages.
+Spans (utils/timer): encrypt_nonces (the host's draws and digits) and
+encrypt_tables tile encrypt_batch; decrypt_ladder, then dlog_batch's
+bsgs_search and bsgs_verify, tile decrypt_batch.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from ..curve.fixed_base import FixedBaseTable, scalars_to_digits
 from ..curve.host_ec import E2_G_HOST, E2_ORDER, HostPoint
 from ..curve.weierstrass import E2, PointW, scalars_to_bits, take
 from ..device import resolve_device
+from ..utils.timer import span
 from .bsgs import BsgsTable
 
 
@@ -80,23 +84,26 @@ class KeyPair:
 def encrypt_batch(messages, key: KeyPair,
                   rng: Optional[random.Random] = None) -> CipherTensor:
     """Encrypt a host integer array (any shape) on the key's device."""
-    rng = rng or random.Random()
-    arr = np.asarray(messages, dtype=object)
-    flat = [int(v) for v in arr.reshape(-1)]
-    rs = [rng.randrange(1, E2_ORDER - 1) for _ in range(len(flat))]
-    r_digits = scalars_to_digits(np.asarray(rs, dtype=object).reshape(arr.shape))
+    with span("encrypt_nonces"):
+        rng = rng or random.Random()
+        arr = np.asarray(messages, dtype=object)
+        flat = [int(v) for v in arr.reshape(-1)]
+        rs = [rng.randrange(1, E2_ORDER - 1) for _ in range(len(flat))]
+        r_digits = scalars_to_digits(
+            np.asarray(rs, dtype=object).reshape(arr.shape))
+        absm = np.asarray([abs(v) for v in flat],
+                          dtype=object).reshape(arr.shape)
+        m_digits = scalars_to_digits(absm)
+        neg = np.asarray([v < 0 for v in flat], dtype=bool).reshape(arr.shape)
 
-    G = g_table(key.device)
-    c1 = G.mul(r_digits)
-    rh = key.h_table.mul(r_digits)
-
-    absm = np.asarray([abs(v) for v in flat], dtype=object).reshape(arr.shape)
-    mg = G.mul(scalars_to_digits(absm))
-    neg = np.asarray([v < 0 for v in flat], dtype=bool).reshape(arr.shape)
-    if neg.any():
-        mg = E2.select(neg, E2.neg(mg), mg)
-
-    c2 = E2.add(mg, rh)
+    with span("encrypt_tables"):
+        G = g_table(key.device)
+        c1 = G.mul(r_digits)
+        rh = key.h_table.mul(r_digits)
+        mg = G.mul(m_digits)
+        if neg.any():
+            mg = E2.select(neg, E2.neg(mg), mg)
+        c2 = E2.add(mg, rh)
     return CipherTensor(c1, c2)
 
 
@@ -107,9 +114,11 @@ def decrypt_batch(ct: CipherTensor, key: KeyPair, table: BsgsTable,
     subtraction, then the batched BSGS search (reference: Client.py
     decrypt_c1_c2 + giant_step)."""
     shape = ct.batch_shape
-    c1 = PointW(*(c.reshape(-1, c.shape[-1]) for c in ct.c1))
-    c2 = PointW(*(c.reshape(-1, c.shape[-1]) for c in ct.c2))
-    s = E2.scalar_mul_bits(c1, scalars_to_bits(key.x, 253))
-    M = E2.add(c2, E2.neg(s))               # m*G
+    with span("decrypt_ladder"):
+        c1 = PointW(*(c.reshape(-1, c.shape[-1]) for c in ct.c1))
+        c2 = PointW(*(c.reshape(-1, c.shape[-1]) for c in ct.c2))
+        s = E2.scalar_mul_bits(c1, scalars_to_bits(key.x, 253))
+        M = E2.add(c2, E2.neg(s))           # m*G
+    # spans bsgs_search and bsgs_verify
     vals = table.dlog_batch(M, max_steps=max_steps)
     return np.asarray(vals, dtype=object).reshape(shape)

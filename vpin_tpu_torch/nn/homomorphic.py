@@ -10,7 +10,9 @@ Port of vpin_tpu/nn/homomorphic.py.  Reference:
 Points are PointW batches; sliding windows are gathers; every scalar
 multiplication of a batch is one K3 launch (the whole ladder) and every
 level of a point sum one K2 launch.  The witness trace records the same
-operations, in the same order, as the reference.
+operations, in the same order, as the reference.  Spans (utils/timer) tile
+conv2d and fc: layer_products (the unrecorded product), rlc_scalars (the
+host's rLC scalars and their bits), rlc_left and rlc_right.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 from ..curve.host_ec import E2_ORDER
 from ..curve.weierstrass import E2, PointW, cat_points, scalars_to_bits, take
 from ..field.limbs import N_LIMBS
+from ..utils.timer import span
 from . import fixed_point
 from .prf import pf_vector
 from .trace import WitnessTrace
@@ -119,30 +122,33 @@ class HomomorphicEngine:
         H, W = P.batch_shape
         filt = np.asarray(filt)
         f = filt.shape[0]
-        idx, OH, OW = _window_indices(H, W, f, padding, stride)
-        M = idx.shape[0]
-
-        win = _gather(_pad_infinity(P, padding), idx)          # (M, f^2)
         wflat = filt.reshape(-1)
 
         # unrecorded homomorphic conv output
-        terms = _signed_const_mul(win, wflat[None, :])
-        out = E2.sum_points(terms, axis=1)                     # (M,)
+        with span("layer_products"):
+            idx, OH, OW = _window_indices(H, W, f, padding, stride)
+            M = idx.shape[0]
+            win = _gather(_pad_infinity(P, padding), idx)      # (M, f^2)
+            terms = _signed_const_mul(win, wflat[None, :])
+            out = E2.sum_points(terms, axis=1)                 # (M,)
+
+        with span("rlc_scalars"):
+            rho = pf_vector(key, M, self.prf_trunc_bytes)
+            rho_bits = scalars_to_bits(rho, 8 * self.prf_trunc_bytes)
 
         # rLC left: sum_m rho_m * out_m
-        rho = pf_vector(key, M, self.prf_trunc_bytes)
-        rho_bits = scalars_to_bits(rho, 8 * self.prf_trunc_bytes)
-        left = E2.sum_points(E2.scalar_mul_bits(out, rho_bits), axis=0)
+        with span("rlc_left"):
+            left = E2.sum_points(E2.scalar_mul_bits(out, rho_bits), axis=0)
 
         # rLC right: combine windows first (unrecorded), then f^2 recorded
         # mults by the plain kernel weights + a recorded add chain.
-        comb_terms = E2.scalar_mul_bits(win, rho_bits[:, None, :])
-        combined = E2.sum_points(comb_terms, axis=0)           # (f^2,)
-        temp = _signed_const_mul(combined, wflat)
-        self.trace.record_mults(combined, [int(v) for v in wflat])
-        right = self._record_chain(temp)
-
-        self.pending_checks.append(E2.eq(left, right))
+        with span("rlc_right"):
+            comb_terms = E2.scalar_mul_bits(win, rho_bits[:, None, :])
+            combined = E2.sum_points(comb_terms, axis=0)       # (f^2,)
+            temp = _signed_const_mul(combined, wflat)
+            self.trace.record_mults(combined, [int(v) for v in wflat])
+            right = self._record_chain(temp)
+            self.pending_checks.append(E2.eq(left, right))
         return PointW(*(c.reshape(OH, OW, N_LIMBS) for c in out))
 
     def avgpool2d(self, P: PointW, kernel_size: int, stride: int) -> PointW:
@@ -176,42 +182,49 @@ class HomomorphicEngine:
         if P.batch_shape != (n_in,):
             raise ValueError(f"fc: {P.batch_shape} inputs for {n_in} rows")
 
-        # C[j] = sum_k W[k, j] * P[k]   (unrecorded)
-        Pb = PointW(*(c[:, None, :] for c in P))
-        terms = _signed_const_mul(Pb, weights)                 # (n_in, n_out)
-        C = E2.sum_points(terms, axis=0)                       # (n_out,)
+        with span("layer_products"):
+            # C[j] = sum_k W[k, j] * P[k]   (unrecorded)
+            Pb = PointW(*(c[:, None, :] for c in P))
+            terms = _signed_const_mul(Pb, weights)             # (n_in, n_out)
+            C = E2.sum_points(terms, axis=0)                   # (n_out,)
+            # bias adds (recorded)
+            self.trace.record_adds(C, bias)
+            out = E2.add(C, bias)
 
-        # bias adds (recorded)
-        self.trace.record_adds(C, bias)
-        out = E2.add(C, bias)
+        with span("rlc_scalars"):
+            rho = pf_vector(key, n_out, self.prf_trunc_bytes)
+            rho_bits = scalars_to_bits(rho, 8 * self.prf_trunc_bytes)
 
         # rLC left over C
-        rho = pf_vector(key, n_out, self.prf_trunc_bytes)
-        rho_bits = scalars_to_bits(rho, 8 * self.prf_trunc_bytes)
-        left = E2.sum_points(E2.scalar_mul_bits(C, rho_bits), axis=0)
+        with span("rlc_left"):
+            left = E2.sum_points(E2.scalar_mul_bits(C, rho_bits), axis=0)
 
-        # Combined column weights in exact integers.  Signed weights make
+        # Combined column weights in exact integers, worked out on the host
+        # while the card runs the left side's ladders.  Signed weights make
         # them signed, so the witness is recorded sign-folded, (sign(s)*P,
         # |s|): homomorphically the same and fit for the 128-bit mult
         # gadget.  Where |s| still needs more than 128 bits it is reduced
         # mod the E2 group order, and the prover takes the 253-bit gadget.
-        s = [sum(int(rho[j]) * int(weights[kk, j]) for j in range(n_out))
-             for kk in range(n_in)]
-        s_rec = []
-        neg = np.zeros((n_in,), dtype=bool)
-        for i, v in enumerate(s):
-            if abs(v) < (1 << 128):
-                neg[i] = v < 0
-                s_rec.append(abs(v))
-            else:
-                s_rec.append(v % E2_ORDER)
-        P_eff = E2.select(neg, E2.neg(P), P) if neg.any() else P
-        n_bits = max(1, max(v.bit_length() for v in s_rec))
-        temp = E2.scalar_mul_bits(P_eff, scalars_to_bits(s_rec, n_bits))
-        self.trace.record_mults(P_eff, s_rec)
-        right = self._record_chain(temp)
+        with span("rlc_scalars"):
+            s = [sum(int(rho[j]) * int(weights[kk, j]) for j in range(n_out))
+                 for kk in range(n_in)]
+            s_rec = []
+            neg = np.zeros((n_in,), dtype=bool)
+            for i, v in enumerate(s):
+                if abs(v) < (1 << 128):
+                    neg[i] = v < 0
+                    s_rec.append(abs(v))
+                else:
+                    s_rec.append(v % E2_ORDER)
+            n_bits = max(1, max(v.bit_length() for v in s_rec))
+            s_bits = scalars_to_bits(s_rec, n_bits)
 
-        self.pending_checks.append(E2.eq(left, right))
+        with span("rlc_right"):
+            P_eff = E2.select(neg, E2.neg(P), P) if neg.any() else P
+            temp = E2.scalar_mul_bits(P_eff, s_bits)
+            self.trace.record_mults(P_eff, s_rec)
+            right = self._record_chain(temp)
+            self.pending_checks.append(E2.eq(left, right))
         return out
 
     def flush_checks(self):

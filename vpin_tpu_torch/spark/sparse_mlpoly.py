@@ -10,7 +10,9 @@ sparse_mlpoly.rs), bit for bit on the transcript:
   * Hyrax commitments of comb_ops, comb_mem and the derefs through the table
     MSM (kernel K4), their openings through PolyEvalProof;
   * HashLayerProof, ProductLayerProof, PolyEvalNetworkProof and
-    SparseMatPolyEvalProof with the reference's labels and append order.
+    SparseMatPolyEvalProof with the reference's labels and append order;
+  * spans (utils/timer) that tile the eval proof: spark_derefs,
+    spark_layers, spark_prod_sumcheck and spark_hash_layer.
 Every instance runs on Montgomery tensors: vpin_tpu keeps those with comb_ops
 up to HOST_POLY_MAX entries on host ints, but on the H100 the 16-add proof's
 SPARK (4,096 entries) is as fast on tensors.  The verifier is host-only: every group equation defers into the caller's
@@ -35,6 +37,7 @@ from ..snark.r1csproof import (PolyCommitment, PolyCommitmentGens,
                                PolyEvalProof, poly_commit)
 from ..transcript.merlin import RandomTape, Transcript
 from ..utils.errors import InternalError, verify_guard
+from ..utils.timer import span
 from .product_tree import (BatchedDotProducts, BatchedProductCircuits,
                            ProductCircuitEvalProofBatched)
 
@@ -511,55 +514,65 @@ class ProductLayerProof:
     PROTOCOL = b"Sparse polynomial product layer proof"
 
     @staticmethod
-    def prove(row_layers: Layers, col_layers: Layers,
-              ops_leaves: torch.Tensor,
-              dense: MultiSparseMatPolynomialAsDense, derefs: Derefs,
+    def prove(dense: MultiSparseMatPolynomialAsDense, derefs: Derefs,
+              mem_rx, mem_ry, r_mem_check: Tuple[int, int],
               evals: List[int], transcript: Transcript):
-        """ops_leaves: the (4B, num_ops, 8) stack of row reads and writes,
-        then col's, whose halves the two Layers hashed their ops into."""
-        transcript.append_protocol_name(ProductLayerProof.PROTOCOL)
-        B = dense.batch_size
+        """Span ``spark_layers``: the hashed leaves, the circuits and their
+        claims; span ``spark_prod_sumcheck``: the two batched proofs."""
+        with span("spark_layers"):
+            transcript.append_protocol_name(ProductLayerProof.PROTOCOL)
+            B = dense.batch_size
+            # the ops circuits' input, row reads and writes then col's,
+            # which the two spaces' leaves are hashed into
+            ops = FQ.zeros((4 * B, dense.N), dense.device)
+            row_layers = Layers(mem_rx, dense.row, derefs.row_ops_val,
+                                r_mem_check, ops[:2 * B])
+            col_layers = Layers(mem_ry, dense.col, derefs.col_ops_val,
+                                r_mem_check, ops[2 * B:])
 
-        ops_circ = BatchedProductCircuits(ops_leaves)
-        ops_evals = ops_circ.evaluate()
-        mem_circ = BatchedProductCircuits(torch.stack(
-            [row_layers.init_leaves, row_layers.audit_leaves,
-             col_layers.init_leaves, col_layers.audit_leaves]))
-        row_init, row_audit, col_init, col_audit = mem_circ.evaluate()
-        eval_row = (row_init, ops_evals[0:B], ops_evals[B:2 * B], row_audit)
-        eval_col = (col_init, ops_evals[2 * B:3 * B], ops_evals[3 * B:4 * B],
-                    col_audit)
+            ops_circ = BatchedProductCircuits(ops)
+            ops_evals = ops_circ.evaluate()
+            mem_circ = BatchedProductCircuits(torch.stack(
+                [row_layers.init_leaves, row_layers.audit_leaves,
+                 col_layers.init_leaves, col_layers.audit_leaves]))
+            row_init, row_audit, col_init, col_audit = mem_circ.evaluate()
+            eval_row = (row_init, ops_evals[0:B], ops_evals[B:2 * B],
+                        row_audit)
+            eval_col = (col_init, ops_evals[2 * B:3 * B],
+                        ops_evals[3 * B:4 * B], col_audit)
 
-        for name, ev in (("row", eval_row), ("col", eval_col)):
-            if not _multiset_ok(*ev):
-                raise InternalError(f"{name} multiset check failed")
-            _append_space(transcript, name, ev)
+            for name, ev in (("row", eval_row), ("col", eval_col)):
+                if not _multiset_ok(*ev):
+                    raise InternalError(f"{name} multiset check failed")
+                _append_space(transcript, name, ev)
 
-        # dot-product circuits: each instance's sum of row_val * col_val *
-        # weight split into left and right halves, stacked interleaved
-        # [left_0, right_0, left_1, right_1, ...] as in the reference
-        half = dense.N // 2
-        parts = ([], [], [])
-        for i in range(B):
-            for lo, hi in ((0, half), (half, 2 * half)):
-                for part, vec in zip(parts, (derefs.row_ops_val[i],
-                                             derefs.col_ops_val[i],
-                                             dense.val[i])):
-                    part.append(vec[lo:hi])
-        dotp = BatchedDotProducts(*(torch.stack(p) for p in parts))
-        dotp_evals = dotp.evaluate()
-        lefts, rights = dotp_evals[0::2], dotp_evals[1::2]
-        for i in range(B):
-            transcript.append_scalar(b"claim_eval_dotp_left", lefts[i])
-            transcript.append_scalar(b"claim_eval_dotp_right", rights[i])
-            if (lefts[i] + rights[i]) % L != evals[i] % L:
-                raise InternalError(f"dot product {i} does not sum to its "
-                                    "claimed evaluation")
+            # dot-product circuits: each instance's sum of row_val *
+            # col_val * weight split into left and right halves, stacked
+            # interleaved [left_0, right_0, left_1, right_1, ...] as in the
+            # reference
+            half = dense.N // 2
+            parts = ([], [], [])
+            for i in range(B):
+                for lo, hi in ((0, half), (half, 2 * half)):
+                    for part, vec in zip(parts, (derefs.row_ops_val[i],
+                                                 derefs.col_ops_val[i],
+                                                 dense.val[i])):
+                        part.append(vec[lo:hi])
+            dotp = BatchedDotProducts(*(torch.stack(p) for p in parts))
+            dotp_evals = dotp.evaluate()
+            lefts, rights = dotp_evals[0::2], dotp_evals[1::2]
+            for i in range(B):
+                transcript.append_scalar(b"claim_eval_dotp_left", lefts[i])
+                transcript.append_scalar(b"claim_eval_dotp_right", rights[i])
+                if (lefts[i] + rights[i]) % L != evals[i] % L:
+                    raise InternalError(f"dot product {i} does not sum to "
+                                        "its claimed evaluation")
 
-        proof_ops, rand_ops = ProductCircuitEvalProofBatched.prove(
-            ops_circ, dotp, transcript)
-        proof_mem, rand_mem = ProductCircuitEvalProofBatched.prove(
-            mem_circ, None, transcript)
+        with span("spark_prod_sumcheck"):
+            proof_ops, rand_ops = ProductCircuitEvalProofBatched.prove(
+                ops_circ, dotp, transcript)
+            proof_mem, rand_mem = ProductCircuitEvalProofBatched.prove(
+                mem_circ, None, transcript)
         return (ProductLayerProof(eval_row, eval_col, (lefts, rights),
                                   proof_mem, proof_ops), rand_mem, rand_ops)
 
@@ -611,19 +624,13 @@ class PolyEvalNetworkProof:
     def prove(dense, derefs, mem_rx, mem_ry, r_mem_check, evals, gens,
               transcript, tape):
         transcript.append_protocol_name(PolyEvalNetworkProof.PROTOCOL)
-        # the ops circuits' input, row reads and writes then col's, which
-        # the two spaces' leaves are hashed into
-        B = dense.batch_size
-        ops = FQ.zeros((4 * B, dense.N), dense.device)
-        row_layers = Layers(mem_rx, dense.row, derefs.row_ops_val,
-                            r_mem_check, ops[:2 * B])
-        col_layers = Layers(mem_ry, dense.col, derefs.col_ops_val,
-                            r_mem_check, ops[2 * B:])
+        # the leaves and circuits are ProductLayerProof.prove's locals, let
+        # go before the hash layer
         proof_prod, rand_mem, rand_ops = ProductLayerProof.prove(
-            row_layers, col_layers, ops, dense, derefs, evals, transcript)
-        del row_layers, col_layers, ops   # free the leaves for the hash layer
-        proof_hash = HashLayerProof.prove((rand_mem, rand_ops), dense, derefs,
-                                          gens, transcript, tape)
+            dense, derefs, mem_rx, mem_ry, r_mem_check, evals, transcript)
+        with span("spark_hash_layer"):
+            proof_hash = HashLayerProof.prove((rand_mem, rand_ops), dense,
+                                              derefs, gens, transcript, tape)
         return PolyEvalNetworkProof(proof_prod, proof_hash)
 
     @verify_guard(failure=False)
@@ -669,17 +676,18 @@ class SparseMatPolyEvalProof:
     def prove(dense: MultiSparseMatPolynomialAsDense, rx, ry, evals,
               gens: SparseMatPolyCommitmentGens, transcript: Transcript,
               tape: RandomTape) -> "SparseMatPolyEvalProof":
-        transcript.append_protocol_name(SparseMatPolyEvalProof.PROTOCOL)
-        if len(evals) != dense.batch_size:
-            raise ValueError("one claimed evaluation per matrix")
-        rx_ext, ry_ext = _equalize(rx, ry)
-        mem_rx = eq_evals(rx_ext, dense.device)
-        mem_ry = eq_evals(ry_ext, dense.device)
-        derefs = Derefs(dense.row.deref(mem_rx), dense.col.deref(mem_ry))
-        comm_derefs = derefs.commit(gens.gens_derefs)
-        derefs_commitment_append(comm_derefs, b"comm_poly_row_col_ops_val",
-                                 transcript)
-        r_mem_check = transcript.challenge_vector(b"challenge_r_hash", 2)
+        with span("spark_derefs"):
+            transcript.append_protocol_name(SparseMatPolyEvalProof.PROTOCOL)
+            if len(evals) != dense.batch_size:
+                raise ValueError("one claimed evaluation per matrix")
+            rx_ext, ry_ext = _equalize(rx, ry)
+            mem_rx = eq_evals(rx_ext, dense.device)
+            mem_ry = eq_evals(ry_ext, dense.device)
+            derefs = Derefs(dense.row.deref(mem_rx), dense.col.deref(mem_ry))
+            comm_derefs = derefs.commit(gens.gens_derefs)
+            derefs_commitment_append(comm_derefs,
+                                     b"comm_poly_row_col_ops_val", transcript)
+            r_mem_check = transcript.challenge_vector(b"challenge_r_hash", 2)
         net_proof = PolyEvalNetworkProof.prove(
             dense, derefs, mem_rx, mem_ry, (r_mem_check[0], r_mem_check[1]),
             list(evals), gens, transcript, tape)
