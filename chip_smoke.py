@@ -6,7 +6,7 @@
 
 Phases:
   1. the card's name and power limit (nvidia-smi);
-  2. build the five CUDA kernel sources from vpin_tpu_torch/csrc, all at
+  2. build the six CUDA kernel sources from vpin_tpu_torch/csrc, all at
      once, and print each kernel's registers, spills and shared memory;
   3. hold each kernel entry bit for bit against its plain PyTorch version on
      the card, at the main path's shapes plus edge and special cases, and
@@ -31,7 +31,11 @@ Phases:
      runs here with the launch counts set to 0 before it, and its sums must
      equal the K4 table MSM and, at 8 points, host_ristretto; then its
      kernel, with 1 (one thread), 4 and 8 lanes a ladder, is held against
-     the plain version and host_ristretto at each shape and timed;
+     the plain version and host_ristretto at each shape and timed; the
+     sumchecks' sc_round (each kind) and sc_bind (2 to 4 tables) on one
+     table and on 12 stacked circuits with a table broadcast along them, at
+     halves of 1 to 2,048, a round with an earlier chunk's sums, and one
+     chunk of 2^21 elements of each on one table and on 8 circuits;
   4. replay the four golden fixtures of crosscheck/gen_golden.py (2 adds,
      2 mults; transparent and with the SPARK eval proof) with the witness
      and every table on the CUDA route (every crossover lowered to 0): both
@@ -45,7 +49,11 @@ Phases:
      witness trace held exactly against the host's curve arithmetic
      (curve/host_ec.py); the proofs must verify and have the sizes their
      instances' shapes give, and K1 and K4 must run inside the mult proof's
-     SPARK spans (SNARK::encode, R1CSEvalProof::prove);
+     SPARK spans (SNARK::encode, R1CSEvalProof::prove); every shape the
+     proofs give sc_round and sc_bind (the product and memory circuits'
+     rounds down to a half of 1, the dot-product tables, the sat proof's
+     quad and cubic_additive tables) is held against the plain versions on
+     its first operands and timed;
   6. this slice's path, CNN A and LeNet-5 served with the client's BSGS
      decryption, each entry's launch counts set to 0 before it and read after
      it: the BSGS table at the reference's m = 3,200,000 built fresh (its
@@ -206,6 +214,16 @@ POW_SHAPES = (18, 1 << 16)
 TABLE_CHUNK = 1 << 18
 # the plain versions run on at most this many elements at a time
 PLAIN_CHUNK = 1 << 18
+# the sumcheck kernels (csrc/sumcheck.cu) in phase 3: each kind on one
+# unstacked table (the sat proof's layout) and on SC_STACK stacked circuits
+# whose last table is broadcast along them (the product circuits' eq table),
+# at each of SC_HALVES; then one ROUND_CHUNK_ELEMS chunk of each kind, on one
+# table and on SC_CHUNK_STACK circuits (LeNet's chunked rounds and binds)
+SC_HALVES = (1, 2, 64, 2048)
+SC_STACK = 12
+SC_CHUNK_STACK = 8
+# products of an element of the half over all of a round's points
+SC_PRODUCTS = {"quad": 2, "cubic": 6, "cubic_additive": 6}
 # K4's MSM shapes: the bullet prover's table MSM (1 row x 2,048 points) and
 # the comb_ops commitment (1,024 Hyrax rows x 2,049 points) through a table
 # 4,096 wide, as the reference pads it
@@ -557,6 +575,215 @@ def check_mont_pow(torch, dev, rate):
             out = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by)
     out["max_abs_err"] = err
     return out
+
+
+def sc_bytes(tensors) -> int:
+    """Bytes of the distinct elements of limb tensors, each read once (an
+    axis broadcast with stride 0 holds one element)."""
+    return sum(32 * int(np.prod([n for n, st in zip(t.shape[:-1],
+                                                     t.stride()[:-1])
+                                 if st != 0], dtype=np.int64))
+               for t in tensors)
+
+
+def hold_sc_round(torch, rate, kind, los, his, acc, label):
+    """sc_round against its plain version on the same halves, timed."""
+    from vpin_tpu_torch.sumcheck.cuda_sumcheck import sc_round
+    from vpin_tpu_torch.sumcheck.sumcheck import round_sums_plain
+    got = sc_round(kind, los, his, acc)
+    want, plain = timed_plain(torch, lambda: round_sums_plain(kind, los, his,
+                                                              acc))
+    require(torch.equal(got, want), f"sc_round {kind} {label}: kernel != "
+                                    f"plain")
+    err = max_abs_err(torch, [got], [want])
+    ms = kernel_ms(torch, lambda: sc_round(kind, los, his, acc), launches=20)
+    lead = torch.broadcast_shapes(*(t.shape[:-2] for t in (*los, *his)))
+    elems = int(np.prod(lead, dtype=np.int64)) * los[0].shape[-2]
+    bnd, by = bound_ms(SC_PRODUCTS[kind] * MUL32_PER_MONT * elems,
+                       sc_bytes([*los, *his]), rate)
+    log(f"sc_round {kind} {label} ({elems} elements of the half): bit-equal "
+        f"to plain; kernel {ms:.4f} ms, plain {plain:.3f} ms, bound "
+        f"{bnd:.4f} ms ({by})")
+    return dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                max_abs_err=err)
+
+
+def hold_sc_bind(torch, rate, los, his, r, label, out=None):
+    """sc_bind against its plain version on the same halves, timed;
+    written into ``out`` (a view) when given."""
+    from vpin_tpu_torch.field import FQ
+    from vpin_tpu_torch.sumcheck.cuda_sumcheck import sc_bind
+    from vpin_tpu_torch.sumcheck.sumcheck import bind_plain
+    shape = (len(los),) + tuple(los[0].shape)
+    if out is None:
+        out = torch.empty(shape, dtype=torch.int32, device=los[0].device)
+    got = sc_bind(los, his, r, out)
+    want, plain = timed_plain(torch, lambda: bind_plain(
+        los, his, FQ.to_mont([r], los[0].device)[0]))
+    require(torch.equal(got, want), f"sc_bind {label}: kernel != plain")
+    err = max_abs_err(torch, [got], [want])
+    ms = kernel_ms(torch, lambda: sc_bind(los, his, r, out), launches=20)
+    elems = int(np.prod(shape[:-1], dtype=np.int64))
+    bnd, by = bound_ms(MUL32_PER_MONT * elems,
+                       sc_bytes([*los, *his]) + 32 * elems, rate)
+    log(f"sc_bind {label} ({elems} elements bound): bit-equal to plain; "
+        f"kernel {ms:.4f} ms, plain {plain:.3f} ms, bound {bnd:.4f} ms "
+        f"({by})")
+    return dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                max_abs_err=err)
+
+
+def sc_tables(torch, dev, count: int, K, h: int, seed: int):
+    """count tables of 2h elements as (lo, hi) halves: with K None one
+    unstacked table each; else K stacked circuits, all but the last table
+    slices of one (K, 2h (count - 1), 8) stack and the last one table
+    broadcast along K."""
+    from vpin_tpu_torch.field import FQ
+
+    def elems(n, sd):
+        return field_operands(torch, FQ, max(n, 64), sd, dev)[:n]
+
+    if K is None:
+        tabs = [elems(2 * h, seed + t) for t in range(count)]
+    else:
+        stack = elems(K * 2 * h * (count - 1), seed).reshape(K, -1, 8)
+        tabs = [stack[:, 2 * h * t:2 * h * (t + 1)] for t in range(count - 1)]
+        tabs.append(elems(2 * h, seed + 50).expand(K, 2 * h, 8))
+    return [t[..., :h, :] for t in tabs], [t[..., h:, :] for t in tabs]
+
+
+def check_sumcheck(torch, dev, rate):
+    """csrc/sumcheck.cu's sc_round and sc_bind against their plain versions
+    (sumcheck.round_sums_plain, bind_plain): each kind and table count on
+    one table and on SC_STACK circuits with a broadcast table at every half
+    of SC_HALVES, a round with an earlier chunk's sums, and one chunk of
+    ROUND_CHUNK_ELEMS elements of each kind on one table and on
+    SC_CHUNK_STACK circuits (a bind written into a view of a wider out).
+    Returns the rows of the conv3 proof's largest product round and bind
+    (SC_STACK circuits, half 2,048) with the largest error of each."""
+    from vpin_tpu_torch.field import FQ
+    from vpin_tpu_torch.sumcheck import sumcheck
+    from vpin_tpu_torch.sumcheck.cuda_sumcheck import KINDS
+    rows = {"sc_round": None, "sc_bind": None}
+    err = {"sc_round": 0, "sc_bind": 0}
+    r = int.from_bytes(np.random.RandomState(60).bytes(32),
+                       "little") % FQ.modulus
+    seed = 60
+    for h in SC_HALVES:
+        for K in (None, SC_STACK):
+            where = (f"one table, half {h}" if K is None
+                     else f"{K} circuits, half {h}, the last table broadcast")
+            for kind, (_, count, _) in KINDS.items():
+                seed += 1
+                los, his = sc_tables(torch, dev, count, K, h, seed)
+                row = hold_sc_round(torch, rate, kind, los, his, None, where)
+                err["sc_round"] = max(err["sc_round"], row["max_abs_err"])
+                if kind == "cubic" and K and h == SC_HALVES[-1]:
+                    rows["sc_round"] = row
+                row = hold_sc_bind(torch, rate, los, his, r,
+                                   f"{count} tables, {where}")
+                err["sc_bind"] = max(err["sc_bind"], row["max_abs_err"])
+                if count == 3 and K and h == SC_HALVES[-1]:
+                    rows["sc_bind"] = row
+    # a later chunk's round: the sums so far added in
+    los, his = sc_tables(torch, dev, 3, SC_STACK, 64, 90)
+    acc = sumcheck.round_sums_plain("cubic", los, his)
+    los, his = sc_tables(torch, dev, 3, SC_STACK, 64, 91)
+    row = hold_sc_round(torch, rate, "cubic", los, his, acc,
+                        f"{SC_STACK} circuits, half 64, with acc")
+    err["sc_round"] = max(err["sc_round"], row["max_abs_err"])
+    # one chunk of ROUND_CHUNK_ELEMS elements
+    chunk = sumcheck.ROUND_CHUNK_ELEMS
+    for K in (None, SC_CHUNK_STACK):
+        h = chunk // (K or 1)
+        where = (f"one table, half {h}" if K is None else
+                 f"{K} circuits, half {h}, the last table broadcast")
+        for kind, (_, count, _) in KINDS.items():
+            seed += 1
+            los, his = sc_tables(torch, dev, count, K, h, seed)
+            row = hold_sc_round(torch, rate, kind, los, his, None,
+                                f"a {chunk}-element chunk, {where}")
+            err["sc_round"] = max(err["sc_round"], row["max_abs_err"])
+            del los, his
+        los, his = sc_tables(torch, dev, 3, K, h, seed + 100)
+        wide = torch.zeros((3,) + tuple(los[0].shape[:-2]) + (2 * h, 8),
+                           dtype=torch.int32, device=dev)
+        row = hold_sc_bind(torch, rate, los, his, r,
+                           f"3 tables, a {chunk}-element chunk, {where}, "
+                           f"into the second half of its out",
+                           out=wide[..., h:, :])
+        require(not wide[..., :h, :].any(), "sc_bind wrote outside its out")
+        err["sc_bind"] = max(err["sc_bind"], row["max_abs_err"])
+        del los, his, wide
+    for name, row in rows.items():
+        row["max_abs_err"] = err[name]
+    return rows["sc_round"], rows["sc_bind"]
+
+
+class RoundLog:
+    """Records, while active, each shape that sumcheck.round_sums_split and
+    bind_tables give sc_round and sc_bind, with its calls and its first
+    operands (copied on the card; a broadcast axis stays broadcast)."""
+
+    def __init__(self):
+        self.calls, self.first = {}, {}
+
+    @staticmethod
+    def _keep(t):
+        base = t
+        for d, (n, st) in enumerate(zip(t.shape, t.stride())):
+            if st == 0 and n > 1:
+                base = base.narrow(d, 0, 1)
+        return base.clone().expand(t.shape)
+
+    @staticmethod
+    def _layout(ts) -> tuple:
+        return tuple(tuple(t.shape[:-1]) + tuple(st == 0 for st in
+                                                 t.stride()[:-2]) for t in ts)
+
+    def _record(self, key, copy):
+        self.calls[key] = self.calls.get(key, 0) + 1
+        if key not in self.first:
+            self.first[key] = copy()
+
+    def __enter__(self):
+        from vpin_tpu_torch.sumcheck import sumcheck
+        self.saved = (sumcheck.sc_round, sumcheck.sc_bind)
+        sc_round, sc_bind = self.saved
+
+        def round_(kind, los, his, acc=None):
+            key = ("sc_round", kind, self._layout(los), acc is not None)
+            self._record(key, lambda: (
+                kind, [self._keep(t) for t in los],
+                [self._keep(t) for t in his],
+                None if acc is None else acc.clone()))
+            return sc_round(kind, los, his, acc)
+
+        def bind(los, his, r, out):
+            key = ("sc_bind", self._layout(los))
+            self._record(key, lambda: ([self._keep(t) for t in los],
+                                       [self._keep(t) for t in his], r))
+            return sc_bind(los, his, r, out)
+
+        sumcheck.sc_round, sumcheck.sc_bind = round_, bind
+        return self
+
+    def __exit__(self, *exc):
+        from vpin_tpu_torch.sumcheck import sumcheck
+        sumcheck.sc_round, sumcheck.sc_bind = self.saved
+
+    def hold(self, torch, rate, label: str) -> dict:
+        """Each recorded shape, kernel against plain on its first operands,
+        timed.  Returns the largest error of each entry."""
+        err = {"sc_round": 0, "sc_bind": 0}
+        for key in sorted(self.first, key=repr):
+            where = f"{label} shape {key[1:]}, {self.calls[key]} calls"
+            if key[0] == "sc_round":
+                row = hold_sc_round(torch, rate, *self.first[key], where)
+            else:
+                row = hold_sc_bind(torch, rate, *self.first[key], where)
+            err[key[0]] = max(err[key[0]], row["max_abs_err"])
+        return err
 
 
 def random_points(torch, dev, n: int, seed: int):
@@ -2743,6 +2970,7 @@ def main() -> int:
             rows["e2_scalar_mul"]["max_abs_err"], row["max_abs_err"])
     k5_rows, own_path = check_ed_ladder(torch, dev, mul32_rate)
     rows["ed_ladder"] = k5_rows[4096]          # the kernels line's K5 row
+    rows["sc_round"], rows["sc_bind"] = check_sumcheck(torch, dev, mul32_rate)
     log("host work: " + ", ".join(f"{k} {v:.2f} ms"
                                   for k, v in host_work_ms().items()))
     phase_done(3)
@@ -2759,8 +2987,11 @@ def main() -> int:
         kernels.LAUNCHES[name] = 0
     results = run_requests(torch, dev)
     conv_launches = dict(kernels.LAUNCHES)
-    single = prove_request(torch, dev, results[1][1])[True]
+    with RoundLog() as rounds:
+        single = prove_request(torch, dev, results[1][1])[True]
     launches = dict(kernels.LAUNCHES)
+    for name, e in rounds.hold(torch, mul32_rate, "conv proofs").items():
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], e)
     log(f"launches over {REQUESTS} requests: {conv_launches}; over them and "
         f"one request's proof: {launches}")
     log(f"main path: K1 {k1_launches(launches)} launches (mont_mul "
@@ -2855,7 +3086,9 @@ def main() -> int:
             ("ed_table", "ed_add.cu", "vpin_tpu/curve/pallas_edwards.py:58"),
             ("ed_msm", "ed_add.cu", "vpin_tpu/curve/pallas_edwards.py:58"),
             ("ed_ladder", "ed_ladder.cu",
-             "vpin_tpu/curve/pallas_edwards.py:73")]
+             "vpin_tpu/curve/pallas_edwards.py:73"),
+            ("sc_round", "sumcheck.cu", None),
+            ("sc_bind", "sumcheck.cu", None)]
     line = {"kernels": [
         {"name": name, "route": "cuda",
          "source": f"vpin_tpu_torch/csrc/{src}", "replaces": replaces,

@@ -40,10 +40,12 @@ SOURCES = {
     "e2_scalar_mul": "e2_scalar_mul.cu",
     "ed_add": "ed_add.cu",
     "ed_ladder": "ed_ladder.cu",
+    "sumcheck": "sumcheck.cu",
 }
 
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _WORDS = ctypes.POINTER(ctypes.c_uint32)
+_I64S = ctypes.POINTER(ctypes.c_longlong)
 
 #: entry -> (kernel whose source exports it, the C function vpin_<entry>'s
 #: argument types before the stream)
@@ -62,6 +64,10 @@ ENTRIES = {
     "ed_ladder": ("ed_ladder",
                   [_P] * 9 + [_I64, _I32, _I32, _I64, _I64, _WORDS, _I32,
                               _P]),
+    "sc_round": ("sumcheck", [_I64S, _I32, _I64, _I64] + [_P] * 3
+                 + [_I32, _WORDS]),
+    "sc_bind": ("sumcheck", [_I64S, _I32, _I64, _I64, _P, _I64, _I64, _I64,
+                             _I32, _WORDS, _WORDS]),
 }
 
 LAUNCHES = {name: 0 for name in ENTRIES}

@@ -2,25 +2,28 @@
 
 Port of vpin_tpu/sumcheck/sumcheck.py (reference Spartan/src/sumcheck.rs and
 unipoly.rs), bit for bit on the transcript.  Each round's evaluation sums
-and the binding of the tables run as batched tensor expressions of K1
-products over the halved tables; the per-round protocol (UniPoly
-interpolation, Pedersen commitments, DotProductProof) is exact host
-arithmetic.  The non-ZK sumcheck (SPARK's product circuits) shares the
-round sums.  Under an active mesh the sumchecks' round sums and binds split
-over it (parallel/ops.py); SPARK's product trees, which call round_sums and
+over the halved tables are one launch of csrc/sumcheck.cu's ``sc_round``
+(two for long halves) and each binding of the tables one ``sc_bind``
+(cuda_sumcheck.py), with batched tensor expressions of K1 products as their
+plain versions; the per-round protocol (UniPoly interpolation, Pedersen
+commitments, DotProductProof) is exact host arithmetic.  The non-ZK
+sumcheck (SPARK's product circuits) shares the round sums.  Under an
+active mesh the sumchecks' round sums and binds split over it
+(parallel/ops.py); SPARK's product trees, which call round_sums and
 bind_tables directly, do not, as in vpin_tpu.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from ..batch_verify import VerifyAccumulator, combine_compress
 from ..curve.rpoint import RPoint, decompress_many
 from ..field import FQ
+from ..field.limbs import N_LIMBS
 from ..field.prime_field import L_MODULUS as L
 from ..nizk.sigma import DotProductProof, commit1, commitN
 from ..parallel.mesh import get_mesh
@@ -29,6 +32,7 @@ from ..poly.dense import DensePoly, bound_top
 from ..transcript.merlin import Transcript
 from ..utils.checkpoint import ROUNDS_PER_CHECKPOINT
 from ..utils.errors import verify_guard
+from .cuda_sumcheck import sc_bind, sc_round
 
 _INV2 = pow(2, -1, L)
 _INV6 = pow(6, -1, L)
@@ -132,16 +136,29 @@ def round_sums(kind: str, tables: Sequence[torch.Tensor]) -> torch.Tensor:
     n, step = _halves(tables)
     sums = None
     for lo in range(0, n, step):
-        part = round_sums_split(
+        sums = round_sums_split(
             kind, [t[..., lo:lo + step, :] for t in tables],
-            [t[..., n + lo:n + lo + step, :] for t in tables])
-        sums = part if sums is None else FQ.add(sums, part)
+            [t[..., n + lo:n + lo + step, :] for t in tables], sums)
     return sums
 
 
 def round_sums_split(kind: str, los: Sequence[torch.Tensor],
-                     his: Sequence[torch.Tensor]) -> torch.Tensor:
-    """``round_sums`` over tables given as their lo and hi halves."""
+                     his: Sequence[torch.Tensor],
+                     acc: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``round_sums`` over tables given as their lo and hi halves, plus an
+    earlier chunk's sums ``acc`` when given.  CUDA tensors launch
+    ``cuda_sumcheck.sc_round``; CPU tensors take its plain version."""
+    if los[0].device.type == "cuda":
+        return sc_round(kind, los, his, acc)
+    return round_sums_plain(kind, los, his, acc)
+
+
+def round_sums_plain(kind: str, los: Sequence[torch.Tensor],
+                     his: Sequence[torch.Tensor],
+                     acc: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """sc_round's function in plain PyTorch: the points t stacked on a
+    leading axis, each product one K1 launch over all of them, the half
+    axis summed by FQ.sum_reduce."""
     F = FQ
     at2 = [F.sub(F.add(h, h), lo) for lo, h in zip(los, his)]
     if kind == "quad":
@@ -157,7 +174,8 @@ def round_sums_split(kind: str, los: Sequence[torch.Tensor],
             terms = F.mul(a, F.sub(F.mul(b, c), d))
     else:
         raise ValueError(f"unknown round kind {kind!r}")
-    return F.sum_reduce(terms, axis=terms.dim() - 2)
+    sums = F.sum_reduce(terms, axis=terms.dim() - 2)
+    return sums if acc is None else F.add(acc, sums)
 
 
 def round_evals(kind: str, tables: Sequence[torch.Tensor]) -> List[int]:
@@ -201,18 +219,26 @@ def round_evals_host(kind: str, tabs: Sequence[List[int]]) -> List[int]:
 
 def bind_tables(tables: Sequence[torch.Tensor], r: int) -> List[torch.Tensor]:
     """Bind the top variable of tables (..., 2n, 8) of one shape to r along
-    their second-to-last axis: lo + r (hi - lo), all tables in one K1
-    launch, the half axis in chunks (ROUND_CHUNK_ELEMS) written into the
-    bound tables."""
+    their second-to-last axis: lo + r (hi - lo), all tables in one launch,
+    the half axis in chunks (ROUND_CHUNK_ELEMS) written into the bound
+    tables.  CUDA tensors launch ``cuda_sumcheck.sc_bind`` a chunk; CPU
+    tensors take its plain version, ``bind_plain``."""
     F = FQ
     n, step = _halves(tables)
     dev = tables[0].device
+    if dev.type == "cuda":
+        out = torch.empty((len(tables),) + tuple(tables[0].shape[:-2])
+                          + (n, N_LIMBS), dtype=torch.int32, device=dev)
+        for a in range(0, n, step):
+            sc_bind([t[..., a:a + step, :] for t in tables],
+                    [t[..., n + a:n + a + step, :] for t in tables], r,
+                    out[..., a:a + step, :])
+        return list(out.unbind(0))
     r_dev = F.to_mont([r], dev)[0]
 
     def bound(a: int, b: int) -> torch.Tensor:
-        lo = torch.stack([t[..., a:b, :] for t in tables])
-        hi = torch.stack([t[..., n + a:n + b, :] for t in tables])
-        return F.add(lo, F.mul(r_dev, F.sub(hi, lo)))
+        return bind_plain([t[..., a:b, :] for t in tables],
+                          [t[..., n + a:n + b, :] for t in tables], r_dev)
 
     if step == n:
         return list(bound(0, n).unbind(0))
@@ -220,6 +246,15 @@ def bind_tables(tables: Sequence[torch.Tensor], r: int) -> List[torch.Tensor]:
     for a in range(0, n, step):
         out[..., a:a + step, :] = bound(a, a + step)
     return list(out.unbind(0))
+
+
+def bind_plain(los: Sequence[torch.Tensor], his: Sequence[torch.Tensor],
+               r_mont: torch.Tensor) -> torch.Tensor:
+    """sc_bind's function in plain PyTorch: lo + r (hi - lo) over the
+    halves stacked (T, ..., m, 8), r as Montgomery limbs (8,)."""
+    F = FQ
+    lo, hi = torch.stack(list(los)), torch.stack(list(his))
+    return F.add(lo, F.mul(r_mont, F.sub(hi, lo)))
 
 
 def bind_polys(tables: Sequence[torch.Tensor], r: int) -> List[torch.Tensor]:
