@@ -8,13 +8,23 @@ each with its image, nonces and rLC keys from the seed; step i proves
 witness i mod ``traces`` with a tape seed of its own.
 
 What is compared once the window has closed:
-  commitment_mismatch  rows of the witness commitments that each proof of
-                    the window was verified against (caught at the
-                    program's cp_snark_verify) that differ from the rows the
-                    reference commits from its own witness of the request,
-                    with the blinds of the step's tape seed
-                    (reference/spartan.py): a proof that verifies is then a
-                    proof of the reference's witness
+  commitment_mismatch  proofs of the window whose witness commitments
+                    (the para and input rows each was verified against,
+                    caught at the program's cp_snark_verify) differ from
+                    those of the reference's own witness of the request with
+                    the blinds of the step's tape seed, plus the proofs that
+                    never passed the verifier.  The rows are compared
+                    through one random linear combination with 128-bit
+                    coefficients from the seed (reference/spartan.py
+                    rows_combine: exact group arithmetic, two row-width MSMs
+                    a share): a proof that verifies is then a proof of the
+                    reference's witness
+  instance_mismatch  proofs verified against an instance (the counts and
+                    every entry of A, B and C, caught at cp_snark_verify)
+                    other than the reference's circuit of as many
+                    operations, padded as Spartan pads it: a circuit with a
+                    constraint dropped or weakened proves faster and still
+                    verifies
   witness_mismatch  every value handed to the prover (points, scalars,
                     infinity flags) against the reference's witness of the
                     same request, recomputed from the inputs
@@ -75,13 +85,19 @@ class Driver:
 
     def _catch_commitments(self):
         """Keep, for each proof verified, the witness commitments (row
-        bytes) that the program's verifier checked it against."""
+        bytes) and the instance (its counts and the host arrays of its
+        matrices, by reference) that the program's verifier checked it
+        against."""
         from vpin_tpu_torch.runner import proof_runner as pr
         verify, verified = pr.cp_snark_verify, self.verified
 
         def caught(proof, inst, inputs_, transcript, gens, comm_para,
                    comm_input, comm=None):
-            verified.append((list(comm_para.C), list(comm_input.C)))
+            mats = tuple((m.rows, m.cols, m.codes, m.codebook)
+                         for m in (inst.A, inst.B, inst.C))
+            verified.append((list(comm_para.C), list(comm_input.C),
+                             (inst.num_cons, inst.num_vars, inst.num_inputs,
+                              mats)))
             return verify(proof, inst, inputs_, transcript, gens, comm_para,
                           comm_input, comm=comm)
 
@@ -143,19 +159,25 @@ class Driver:
     def checks(self) -> Dict[str, tuple]:
         lim = self.mix["limits"]
         used = sorted({s["trace"] for s in self.stats}
-                      | {j for _, j, _, _ in self.verified})
+                      | {v[1] for v in self.verified})
         want_args = {t: self.reference_args(t) for t in used}
-        comm_bad = 0
-        for i, j, para, inp in self.verified:
-            ref = spartan.commitments(self.gadget, want_args[j],
-                                      inputs.tape_seed(self.ctx.seed, i))
-            for got, want in zip((para, inp), ref):
-                comm_bad += abs(len(got) - len(want)) + sum(
-                    bytes(g) != w for g, w in zip(got, want))
+        comm_bad = inst_bad = 0
+        judged, seed = {}, self.ctx.seed
+        for i, j, para, inp, inst in self.verified:
+            comm_bad += spartan.rows_at_fault(
+                self.gadget, want_args[j], inputs.tape_seed(seed, i), para,
+                inp, inputs.subseed(seed, "rows", i))
+            key = instance_key(inst)
+            if key not in judged:
+                judged[key] = instance_at_fault(
+                    self.gadget, len(want_args[j][0]), inst)
+            inst_bad += judged[key]
         # a proof that ended without passing the verifier has no
-        # commitments to compare: it counts as one row at fault
-        seen = {i for i, _, _, _ in self.verified}
-        comm_bad += sum(s["step"] not in seen for s in self.stats)
+        # commitments or instance to compare: it counts as at fault in both
+        seen = {v[0] for v in self.verified}
+        unseen = sum(s["step"] not in seen for s in self.stats)
+        comm_bad += unseen
+        inst_bad += unseen
         wit_bad = 0
         for t in used:
             want = want_args[t]
@@ -171,9 +193,28 @@ class Driver:
         want_bytes = self.proof["bytes"]["full" if self.full else "transparent"]
         size_bad = sum(int(s["bytes"] != want_bytes) for s in self.stats)
         return {"commitment_mismatch": (comm_bad, lim["commitment_mismatch"]),
+                "instance_mismatch": (inst_bad, lim["instance_mismatch"]),
                 "witness_mismatch": (wit_bad, lim["witness_mismatch"]),
                 "size_mismatch": (size_bad, lim["size_mismatch"]),
                 "rejected": (self.rejected, lim["rejected"])}
+
+
+def instance_key(inst) -> tuple:
+    """What tells two caught instances apart: their counts and the bytes
+    of their matrices' arrays."""
+    counts, mats = inst[:3], inst[3]
+    return counts + tuple(
+        (rows.tobytes(), cols.tobytes(), codes.tobytes(), tuple(book))
+        for rows, cols, codes, book in mats)
+
+
+def instance_at_fault(gadget: str, count: int, inst) -> bool:
+    """Whether a caught instance differs from the reference's circuit of
+    ``count`` operations of ``gadget`` (reference/spartan.py instance)."""
+    mats = [(rows.tolist(), cols.tolist(), [book[k] for k in codes.tolist()])
+            for rows, cols, codes, book in inst[3]]
+    return spartan.canonical(*inst[:3], mats) != spartan.instance(gadget,
+                                                                  count)
 
 
 def witness_args(wit: pipeline.Witness, gadget: str):

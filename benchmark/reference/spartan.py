@@ -11,9 +11,14 @@ with the proof's tape seed: 2^lnv draws labelled b"poly_blinds" for
 vars_para, then as many for vars_input.  The verifier checks the proof
 against these commitments, so commitments recomputed from the reference's
 own witness tie a proof that verifies to the witness it has to be of.
+``rows_at_fault`` compares them through one random linear combination of
+the rows (two MSMs of a row's width a share).  ``instance`` builds the
+R1CS instance the proofs have to be verified against, padded as Spartan
+pads it, so that a proof of a weaker circuit is caught too.
 
-Each gadget's witness layout is a module of its own, found by the gadget's
-name: benchmark/reference/gadgets/<name>.py with ``shares(args)``.
+Each gadget is a module of its own, found by the gadget's name:
+benchmark/reference/gadgets/<name>.py with ``shares(args)`` (the witness
+layout) and ``constraints(count)`` (the circuit).
 """
 
 from __future__ import annotations
@@ -21,7 +26,8 @@ from __future__ import annotations
 import functools
 import hashlib
 import importlib
-from typing import List, Sequence, Tuple
+import random
+from typing import Dict, List, Sequence, Tuple
 
 # ------------------------------------------------------------ Keccak-f[1600]
 
@@ -243,6 +249,27 @@ def encode(p) -> bytes:
     return _abs(den_inv * (z0 - y)).to_bytes(32, "little")
 
 
+def decode(b: bytes):
+    """RFC 9496 DECODE: the point of a canonical encoding, or None where
+    the 32 bytes encode no point."""
+    s = int.from_bytes(b, "little")
+    if len(b) != 32 or s >= PP or _neg(s):
+        return None
+    ss = s * s % PP
+    u1, u2 = (1 - ss) % PP, (1 + ss) % PP
+    u2_sqr = u2 * u2 % PP
+    v = (-(D * u1 * u1) - u2_sqr) % PP
+    was_square, invsqrt = _sqrt_ratio_m1(1, v * u2_sqr)
+    den_x = invsqrt * u2 % PP
+    den_y = invsqrt * den_x * v % PP
+    x = _abs(2 * s * den_x)
+    y = u1 * den_y % PP
+    t = x * y % PP
+    if not was_square or _neg(t) or y == 0:
+        return None
+    return (x, y, 1, t)
+
+
 def _map(t: int):
     """RFC 9496 MAP (Elligator 2)."""
     r = SQRT_M1 * t * t % PP
@@ -294,21 +321,6 @@ def shape(num_vars: int, num_inputs: int) -> Tuple[int, int]:
     return 1 << (ell // 2), 1 << (ell - ell // 2)
 
 
-def hyrax_rows(values: Sequence[int], blinds: Sequence[int], G, h,
-               rows: int) -> List[bytes]:
-    """Each row's commitment <row, G> + blind * h, encoded; zeros pad the
-    values to rows x len(G).  ``G`` and ``h`` are window tables."""
-    width = len(G)
-    vals = list(values) + [0] * (rows * width - len(values))
-    out = []
-    for r in range(rows):
-        row = vals[r * width:(r + 1) * width]
-        pick = [(v, g) for v, g in zip(row, G) if v % ELL]
-        out.append(encode(msm([v for v, _ in pick] + [blinds[r]],
-                              [g for _, g in pick] + [h])))
-    return out
-
-
 @functools.lru_cache(maxsize=None)
 def _row_tables(width: int, label: bytes):
     G, h = generators(width, label)
@@ -321,15 +333,89 @@ def layout(gadget: str):
     return importlib.import_module(f"{__package__}.gadgets.{gadget}")
 
 
-def commitments(gadget: str, args,
-                tape_seed: int) -> Tuple[List[bytes], List[bytes]]:
-    """The row commitments (para, input) that a proof of ``gadget`` over
-    the witness ``args`` (proof_runner.trace_args' layout) with tape seed
-    ``tape_seed`` has to be verified against: the sat proof's generators
-    (R1CSGens, label b"gens_r1cs_sat")."""
+def _witness(gadget: str, args, tape_seed: int):
+    """The shares of ``args`` with their blinds, the row count and the sat
+    proof's row generators (R1CSGens, label b"gens_r1cs_sat")."""
     para, inp, num_inputs = layout(gadget).shares(args)
     rows, width = shape(len(inp), num_inputs)
     G, h = _row_tables(width, b"gens_r1cs_sat")
     b_para, b_inp = tape_blinds(tape_seed, [rows, rows])
-    return (hyrax_rows(para, b_para, G, h, rows),
-            hyrax_rows(inp, b_inp, G, h, rows))
+    return ((para, b_para), (inp, b_inp)), rows, G, h
+
+
+def rows_combine(values: Sequence[int], blinds: Sequence[int],
+                 got: Sequence[bytes], coeffs: Sequence[int], G, h) -> bool:
+    """Whether the rows ``got`` are the commitments of ``values`` (rows of
+    len(G), zero-padded) with ``blinds``, checked through one random linear
+    combination: sum c_r C_r over the decoded rows against
+    <sum c_r v_r, G> + (sum c_r b_r) h.  Exact group arithmetic: rows that
+    differ anywhere pass only where the coefficients cancel the difference
+    (probability about 2^-128 for 128-bit coefficients).  A row that does
+    not decode, or a row count other than the blinds', fails."""
+    rows, width = len(blinds), len(G)
+    if len(got) != rows:
+        return False
+    points = [decode(bytes(c)) for c in got]
+    if any(p is None for p in points):
+        return False
+    lhs = msm(coeffs, [window_table(p) for p in points])
+    row = [0] * width
+    for r, c in enumerate(coeffs):
+        for k, v in enumerate(values[r * width:(r + 1) * width]):
+            if v:
+                row[k] += c * v
+    blind = sum(c * b for c, b in zip(coeffs, blinds))
+    pick = [(v % ELL, g) for v, g in zip(row, G) if v % ELL]
+    rhs = msm([v for v, _ in pick] + [blind],
+              [g for _, g in pick] + [h])
+    return encode(lhs) == encode(rhs)
+
+
+def rows_at_fault(gadget: str, args, tape_seed: int, got_para, got_input,
+                  seed: int) -> bool:
+    """Whether the row commitments a proof was verified against (para,
+    input) differ from those of the reference's witness ``args`` with the
+    blinds of ``tape_seed``: rows_combine on each share, with 128-bit
+    coefficients drawn from random.Random(seed), the para rows' first."""
+    shares, rows, G, h = _witness(gadget, args, tape_seed)
+    rng = random.Random(seed)
+    return not all(
+        rows_combine(values, blinds, got,
+                     [rng.getrandbits(128) for _ in range(rows)], G, h)
+        for (values, blinds), got in ((shares[0], got_para),
+                                      (shares[1], got_input)))
+
+
+def _pow2(n: int) -> int:
+    return 1 << (n - 1).bit_length()
+
+
+@functools.lru_cache(maxsize=4)
+def instance(gadget: str, count: int):
+    """(num_cons, num_vars, num_inputs, A, B, C) of the instance that the
+    proofs of ``count`` operations of ``gadget`` are verified against, as
+    Spartan's Instance::new pads the circuit: both counts up to powers of
+    two, and the columns of the constant 1 and the inputs moved up to
+    follow the padded variables.  A, B and C are sorted (row, column,
+    value mod l) triples with no zero value."""
+    rows, num_vars, num_inputs = layout(gadget).constraints(count)
+    nv = _pow2(max(num_vars, num_inputs + 1))
+    mats = tuple(
+        tuple(sorted((r, c + nv - num_vars if c >= num_vars else c, v % ELL)
+                     for r, row in enumerate(rows)
+                     for c, v in row[side].items() if v % ELL))
+        for side in range(3))
+    return (_pow2(max(len(rows), 2)), nv, num_inputs) + mats
+
+
+def canonical(num_cons: int, num_vars: int, num_inputs: int, mats):
+    """An instance given as its counts and (rows, cols, values) of A, B
+    and C in the form ``instance`` returns: entries of one place summed."""
+    out = []
+    for rows, cols, vals in mats:
+        acc: Dict[Tuple[int, int], int] = {}
+        for r, c, v in zip(rows, cols, vals):
+            acc[r, c] = (acc.get((r, c), 0) + int(v)) % ELL
+        out.append(tuple(sorted((r, c, v) for (r, c), v in acc.items()
+                                if v)))
+    return (int(num_cons), int(num_vars), int(num_inputs)) + tuple(out)

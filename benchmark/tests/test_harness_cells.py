@@ -82,11 +82,12 @@ def test_contract(bench):
 
 def test_cell_order_and_names(bench):
     assert [w["name"] for w in bench["workloads"]] == [
-        "conv3.prove_add", "cnn_a.serve_32", "conv3.serve_256"]
+        "conv3.prove_add", "cnn_a.serve_32", "conv3.serve_256",
+        "conv3.prove_mult"]
 
 
 @pytest.mark.parametrize("cell", ["conv3.prove_add", "cnn_a.serve_32",
-                                  "conv3.serve_256"])
+                                  "conv3.serve_256", "conv3.prove_mult"])
 def test_pieces_found_by_name(bench, cell):
     c = cells.cell(bench, cell)
     cfg = cells.config(bench, c["config"])

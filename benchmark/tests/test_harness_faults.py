@@ -73,7 +73,26 @@ def test_cnn_answer_altered(bench, monkeypatch):
     assert line["checks"]["logits_mismatch"]["value"] > 0
 
 
-def test_proof_answer_altered(bench, monkeypatch):
+PROOF_CELLS = ["conv3.prove_add", "conv3.prove_mult"]
+
+
+def _gadget(monkeypatch, cell, alter):
+    """Replace the proof's gadget by one that builds from the arguments
+    ``alter(args)`` gives: an add's (px, py, rx, ry, rz), a mult's
+    (weights, px, py)."""
+    from vpin_tpu_torch.runner import proof_runner
+    name = ("point_addition_gadget" if cell == "conv3.prove_add"
+            else "point_mult_gadget")
+    gadget = getattr(proof_runner, name)
+
+    def broken(*args, **kwargs):
+        return gadget(*alter(args), **kwargs)
+
+    monkeypatch.setattr(proof_runner, name, broken)
+
+
+@pytest.mark.parametrize("cell", PROOF_CELLS)
+def test_proof_answer_altered(bench, monkeypatch, cell):
     """A proof altered where it is produced: its claimed evaluations moved
     by one.  The verifier refuses it."""
     from vpin_tpu_torch.runner import proof_runner
@@ -89,40 +108,32 @@ def test_proof_answer_altered(bench, monkeypatch):
         return proof
 
     monkeypatch.setattr(proof_runner, "cp_snark_prove", broken)
-    line = run_small(bench, "conv3.prove_add")
+    line = run_small(bench, cell)
     assert line["correct"] is False
     assert line["checks"]["rejected"]["value"] > 0
 
 
-def test_proof_half_the_witness(bench, monkeypatch):
-    """A prover that proves only half of the adds it is handed: the proof
-    verifies, but its size is not the instance's."""
-    from vpin_tpu_torch.runner import proof_runner
-    gadget = proof_runner.point_addition_gadget
-
-    def broken(px, py, rx, ry, rz, device=None):
-        h = max(1, len(px) // 2)
-        return gadget(px[:h], py[:h], rx[:h], ry[:h], rz[:h], device=device)
-
-    monkeypatch.setattr(proof_runner, "point_addition_gadget", broken)
-    line = run_small(bench, "conv3.prove_add")
+@pytest.mark.parametrize("cell", PROOF_CELLS)
+def test_proof_half_the_witness(bench, monkeypatch, cell):
+    """A prover that proves only half of the adds or mults it is handed:
+    the proof verifies, but its size is not the instance's."""
+    _gadget(monkeypatch, cell,
+            lambda args: [a[:max(1, len(a) // 2)] for a in args])
+    line = run_small(bench, cell)
     assert line["correct"] is False
     assert line["checks"]["size_mismatch"]["value"] > 0
 
 
-def test_proof_of_another_witness(bench, monkeypatch):
+@pytest.mark.parametrize("cell", PROOF_CELLS)
+def test_proof_of_another_witness(bench, monkeypatch, cell):
     """A prover that proves a witness other than the one it is handed (the
-    first add's left x moved by one): the proof verifies and is of the
-    instance's size, and only the reference's commitments catch it."""
-    from vpin_tpu_torch.runner import proof_runner
-    gadget = proof_runner.point_addition_gadget
-
-    def broken(px, py, rx, ry, rz, device=None):
-        return gadget([px[0] + 1] + list(px[1:]), py, rx, ry, rz,
-                      device=device)
-
-    monkeypatch.setattr(proof_runner, "point_addition_gadget", broken)
-    line = run_small(bench, "conv3.prove_add")
+    first add's left x or the first mult's scalar moved by one): the proof
+    verifies and is of the instance's size, and only the reference's
+    commitments catch it."""
+    _gadget(monkeypatch, cell,
+            lambda args: [[args[0][0] + 1] + list(args[0][1:])]
+            + list(args[1:]))
+    line = run_small(bench, cell)
     assert line["correct"] is False
     checks = line["checks"]
     assert checks["commitment_mismatch"]["value"] > 0
@@ -130,11 +141,37 @@ def test_proof_of_another_witness(bench, monkeypatch):
         assert checks[k]["value"] == 0, k
 
 
+@pytest.mark.parametrize("cell", PROOF_CELLS)
+def test_proof_of_a_weaker_circuit(bench, monkeypatch, cell):
+    """A prover whose circuit has its last constraint replaced by a copy of
+    the one before: the witness still satisfies it, the proof verifies and
+    is of the instance's size, and only the reference's instance catches
+    it."""
+    from benchmark.tests.test_harness_spartan import weakened
+    from vpin_tpu_torch.gadgets import point_addition, point_mult
+    mod = point_addition if cell == "conv3.prove_add" else point_mult
+    build = mod.build_matrices
+
+    def broken(*args, **kwargs):
+        A, B, C, nc, nv, ni = build(*args, **kwargs)
+        return (*(weakened(m, nc) for m in (A, B, C)), nc, nv, ni)
+
+    monkeypatch.setattr(mod, "build_matrices", broken)
+    line = run_small(bench, cell)
+    assert line["correct"] is False
+    checks = line["checks"]
+    assert checks["instance_mismatch"]["value"] > 0
+    for k in ("commitment_mismatch", "witness_mismatch", "size_mismatch",
+              "rejected"):
+        assert checks[k]["value"] == 0, k
+
+
 @pytest.mark.parametrize("cell,number", [
     ("conv3.serve_256", "output_mismatch"),
     ("cnn_a.serve_32", "logits_mismatch"),
     ("conv3.prove_add", "commitment_mismatch"),
-    ("conv3.prove_add", "witness_mismatch")])
+    ("conv3.prove_add", "witness_mismatch"),
+    ("conv3.prove_mult", "commitment_mismatch")])
 def test_control(bench, cell, number):
     """Each cell's control (benchmark/control.py) is not correct."""
     line = run_small(bench, cell, control=True)

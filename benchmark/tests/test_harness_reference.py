@@ -1,6 +1,6 @@
 """The plain reference against vpin_tpu_torch on the CPU at small sizes:
 the group arithmetic, the single conv, CNN A at 8x8 with a small table, and
-the 2-add proof of a conv witness."""
+the 2-add and 2-mult proofs of a conv witness."""
 
 from __future__ import annotations
 
@@ -77,8 +77,17 @@ def test_two_add_proof(bench):
     assert line["attempted"] >= 1 and line["failed"] == 0
 
 
+def test_two_mult_proof(bench):
+    """The 2-mult, 128-bit transparent proof: the witness handed over and
+    the commitments it was verified against equal the reference's, the
+    proof verifies, and its size is the golden fixture's."""
+    line = run_small(bench, "conv3.prove_mult")
+    assert line["correct"], line["checks"]
+    assert line["attempted"] >= 1 and line["failed"] == 0
+
+
 def test_a_gadget_the_reference_cannot_commit(bench):
     """A proof mix whose gadget has no layout under reference/gadgets/
     does not run: nothing would tie its proofs to a witness."""
     with pytest.raises(ModuleNotFoundError):
-        run_small(bench, "conv3.prove_add", gadget="mult")
+        run_small(bench, "conv3.prove_add", gadget="pairing")

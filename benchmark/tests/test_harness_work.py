@@ -137,3 +137,46 @@ def test_idle_gaps_split_over_the_host_spans_open_during_them():
     got = _name_gaps([(s, n) for s, n, _ in gaps], spans)
     assert got == {"a": 0.5, "outer": 1.5, "b": 0.5,
                    "(outside any span)": 0.5}
+
+
+def _chip_smoke():
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", cells.ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_sumcheck_bounds_equal_chip_smokes():
+    """sc_round and sc_bind are bounded as chip_smoke.py's hold_sc_round
+    and hold_sc_bind bound them, on PERF.md's shapes: 12 circuits x half
+    2,048, cubic, the last table broadcast along the circuits (0.0023 ms by
+    operations), and their bind of 3 tables (0.0017 ms by bytes)."""
+    import torch
+    cs = _chip_smoke()
+    K, h = 12, 2048
+    stack = torch.zeros(K, 2 * h * 2, 8, dtype=torch.int32)
+    eq = torch.zeros(1, 2 * h, 8, dtype=torch.int32).expand(K, 2 * h, 8)
+    tabs = [stack[:, :2 * h], stack[:, 2 * h:], eq]
+    los = [t[:, :h] for t in tabs]
+    his = [t[:, h:] for t in tabs]
+    log = bounds.LaunchLog()
+    log._record("sc_round", ("cubic", los, his, None))
+    log._record("sc_bind", (los, his, 5, None))
+    got = log.bounds()
+    rate = peaks.MUL32_PER_S
+    want_round = cs.bound_ms(cs.SC_PRODUCTS["cubic"] * cs.MUL32_PER_MONT
+                             * K * h, cs.sc_bytes([*los, *his]), rate)
+    elems = 3 * K * h
+    want_bind = cs.bound_ms(cs.MUL32_PER_MONT * elems,
+                            cs.sc_bytes([*los, *his]) + 32 * elems, rate)
+    assert got["sc_round"] * 1e3 == pytest.approx(want_round[0], rel=1e-12)
+    assert got["sc_bind"] * 1e3 == pytest.approx(want_bind[0], rel=1e-12)
+    assert want_round[1] == "operations" and want_bind[1] == "bytes"
+    assert abs(got["sc_round"] * 1e3 - 0.0023) < 0.0001
+    assert abs(got["sc_bind"] * 1e3 - 0.0017) < 0.0001
+    assert bounds.SC_PRODUCTS == cs.SC_PRODUCTS
+    for name in ("sc_round_kernel", "sc_round_reduce_kernel"):
+        assert bounds.kernel_entry(f"{name}(long long const*)") == "sc_round"
+    assert bounds.kernel_entry("sc_bind_kernel(long long const*)") == "sc_bind"

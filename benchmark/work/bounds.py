@@ -22,6 +22,11 @@ from typing import Dict, List, Optional
 from .peaks import (MUL32_PER_PRODUCT_L, MUL32_PER_PRODUCT_P, P_25519,
                     PRODUCTS_E2_ADD, PRODUCTS_ED_ADD, bound_s)
 
+#: products mod l an element of a sumcheck round's half: a product at each
+#: of the kind's points (quad: A B at t = 0, 2), two a point for the cubic
+#: kinds (A B C or A (B C - D) at t = 0, 2, 3)
+SC_PRODUCTS = {"quad": 2, "cubic": 6, "cubic_additive": 6}
+
 #: __global__ kernel name -> the entry whose bound it is paired with
 KERNELS = {
     "mont_mul_kernel": "mont_mul",
@@ -35,6 +40,9 @@ KERNELS = {
     "ed_msm_horner_kernel": "ed_msm",
     "ed_ladder_thread_kernel": "ed_ladder",
     "ed_ladder_kernel": "ed_ladder",
+    "sc_round_kernel": "sc_round",
+    "sc_round_reduce_kernel": "sc_round",
+    "sc_bind_kernel": "sc_bind",
 }
 _KERNEL_RE = re.compile(r"\b(" + "|".join(sorted(KERNELS, key=len,
                                                   reverse=True)) + r")\b")
@@ -54,6 +62,19 @@ def _per_product(field) -> int:
 
 def _n(t) -> int:
     return t.numel() // 8
+
+
+def sc_bytes(tensors) -> int:
+    """Bytes of the distinct elements of limb tensors, each read once (an
+    axis broadcast with stride 0 holds one element)."""
+    total = 0
+    for t in tensors:
+        n = 1
+        for d, st in zip(t.shape[:-1], t.stride()[:-1]):
+            if st != 0:
+                n *= int(d)
+        total += 32 * n
+    return total
 
 
 def _ladder_adds(words, n: int, n_bits: int, inner: int, nrows: int) -> int:
@@ -76,6 +97,7 @@ class LaunchLog:
         "field.prime_field": ("mont_mul", "mont_pow"),
         "curve.cuda_ec": ("e2_add", "e2_scalar_mul"),
         "curve.cuda_edwards": ("ed_add", "ed_table", "ed_msm", "ed_ladder"),
+        "sumcheck.sumcheck": ("sc_round", "sc_bind"),
     }
 
     def __init__(self):
@@ -119,6 +141,23 @@ class LaunchLog:
             self.calls.append((name, adds * PRODUCTS_ED_ADD
                                * MUL32_PER_PRODUCT_P,
                                rows * n * 32 + rows * 128))
+        elif name == "sc_round":
+            import torch
+            kind, los, his = a[:3]
+            lead = torch.broadcast_shapes(*(t.shape[:-2]
+                                            for t in (*los, *his)))
+            n = int(los[0].shape[-2])
+            for d in lead:
+                n *= int(d)
+            self.calls.append((name, SC_PRODUCTS[kind] * MUL32_PER_PRODUCT_L
+                               * n, sc_bytes([*los, *his])))
+        elif name == "sc_bind":
+            los, his = a[:2]
+            n = len(los)
+            for d in los[0].shape[:-1]:
+                n *= int(d)
+            self.calls.append((name, MUL32_PER_PRODUCT_L * n,
+                               sc_bytes([*los, *his]) + 32 * n))
 
     def _wrap(self, name, fn):
         def wrapper(*args, **kwargs):
@@ -164,7 +203,7 @@ class LaunchLog:
 
 def _on_card(args) -> bool:
     for a in args:
-        t = a[0] if isinstance(a, tuple) and a else a
+        t = a[0] if isinstance(a, (tuple, list)) and a else a
         if hasattr(t, "device"):
             return t.device.type == "cuda"
     return False
